@@ -1,0 +1,307 @@
+"""DNN graph IR: a DAG of layers, the optimization unit of the paper.
+
+Port of the reference's ``core/graph.py``: ``Net``, ``init_params``
+(numpy, so the raw weights match the reference's bit for bit) and
+``fingerprint`` are the reference's; the op definitions run on PyTorch
+tensors that carry a leading batch axis, ``(N, *memory shape)``.
+
+Convolution layers carry a :class:`Scenario` and are assigned primitives
+by the PBQP selection.  All other layers ("op" nodes: activation,
+pooling, LRN, concat, FC, ...) follow the paper's simplifying
+assumption: they are layout-polymorphic dummy nodes with zero cost whose
+PBQP domain is the set of data layouts they accept.
+"""
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .layouts import Layout
+from .scenario import Scenario
+
+__all__ = ["Net", "Node", "OpDef", "relu", "maxpool", "avgpool", "lrn",
+           "concat", "fc", "global_avgpool", "softmax", "identity"]
+
+#: layouts an op node accepts by default (all unblocked permutations that
+#: primitives actually produce; blocked layouts are op-specific)
+DEFAULT_OP_LAYOUTS = ("CHW", "HWC", "HCW")
+
+
+@dataclass
+class OpDef:
+    """A non-convolution layer type (zero-cost in the PBQP model)."""
+
+    name: str
+    #: in_shapes (logical CHW-tuples) -> out logical shape
+    shape_fn: Callable[[Sequence[Tuple[int, ...]]], Tuple[int, ...]]
+    #: (xs, layout, params) -> y  — layout-polymorphic execution
+    fn: Callable
+    init_params: Optional[Callable] = None
+    layouts: Tuple[str, ...] = DEFAULT_OP_LAYOUTS
+
+
+@dataclass
+class Node:
+    id: str
+    kind: str  # "input" | "conv" | "op"
+    inputs: List[str] = field(default_factory=list)
+    scn: Optional[Scenario] = None
+    op: Optional[OpDef] = None
+    out_shape: Tuple[int, ...] = ()  # logical (C, H, W) or (F,) after FC
+
+
+class Net:
+    """DAG builder + container."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.nodes: Dict[str, Node] = {}
+        self._order: List[str] = []
+
+    def _add(self, node: Node) -> str:
+        if node.id in self.nodes:
+            raise ValueError(f"duplicate node {node.id}")
+        for i in node.inputs:
+            if i not in self.nodes:
+                raise ValueError(f"{node.id}: unknown input {i}")
+        self.nodes[node.id] = node
+        self._order.append(node.id)
+        return node.id
+
+    def input(self, id: str, shape_chw: Tuple[int, int, int]) -> str:
+        return self._add(Node(id, "input", [], out_shape=shape_chw))
+
+    def conv(self, id: str, src: str, *, k: int, m: int, stride: int = 1,
+             pad: int = -1) -> str:
+        c, h, w = self.nodes[src].out_shape
+        scn = Scenario(c=c, h=h, w=w, stride=stride, k=k, m=m, pad=pad)
+        return self._add(Node(id, "conv", [src], scn=scn,
+                              out_shape=scn.out_shape_chw))
+
+    def op(self, id: str, srcs: Sequence[str], opdef: OpDef) -> str:
+        shapes = [self.nodes[s].out_shape for s in srcs]
+        return self._add(Node(id, "op", list(srcs), op=opdef,
+                              out_shape=opdef.shape_fn(shapes)))
+
+    # ------------------------------------------------------------------
+    @property
+    def order(self) -> List[str]:
+        return list(self._order)
+
+    def edges(self) -> List[Tuple[str, str]]:
+        out = []
+        for nid in self._order:
+            for src in self.nodes[nid].inputs:
+                out.append((src, nid))
+        return out
+
+    def conv_nodes(self) -> List[Node]:
+        return [self.nodes[n] for n in self._order
+                if self.nodes[n].kind == "conv"]
+
+    def with_batch(self, n: int) -> "Net":
+        """This net with every conv scenario's minibatch set to ``n``.
+
+        Copy-on-write: returns ``self`` when nothing changes, otherwise
+        a new ``Net`` with fresh ``Node`` objects — never a mutation, so
+        a memoizing net builder can hand out one shared ``Net`` per
+        shape and cached :class:`~repro.core.selection.SelectionResult`s
+        keep the batch they were solved with.  Node ``out_shape``s stay
+        logical per-image CHW — the batch axis lives in the scenarios
+        (costing/selection) and in the compiled executable
+        (``core.plan.compile_plan(..., batch=n)``), never in the graph
+        topology, so node ids and warm starts line up across batch
+        sizes.  ``fingerprint()`` picks the change up through
+        ``Scenario.key()``, keeping batched plans cleanly keyed.
+        """
+        if all(node.scn.n == n for node in self.conv_nodes()):
+            return self
+        new = Net(self.name)
+        for nid in self._order:
+            nd = self.nodes[nid]
+            scn = nd.scn.with_(n=n) if nd.kind == "conv" else nd.scn
+            new.nodes[nid] = Node(nd.id, nd.kind, list(nd.inputs),
+                                  scn, nd.op, nd.out_shape)
+            new._order.append(nid)
+        return new
+
+    def outputs(self) -> List[str]:
+        consumed = {s for s, _ in self.edges()}
+        return [n for n in self._order if n not in consumed]
+
+    def fingerprint(self) -> str:
+        """Stable content hash of the graph: topology, scenarios, op kinds,
+        accepted layouts and shapes.  Two nets with the same fingerprint
+        build byte-identical PBQP instances under the same cost model, so
+        the serving plan cache uses this as part of its key."""
+        h = hashlib.sha256()
+        for nid in self._order:
+            n = self.nodes[nid]
+            parts = [nid, n.kind, ",".join(n.inputs),
+                     "x".join(map(str, n.out_shape))]
+            if n.scn is not None:
+                parts.append(n.scn.key())
+            if n.op is not None:
+                parts.append(n.op.name)
+                parts.append(",".join(n.op.layouts))
+            h.update(("|".join(parts) + "\n").encode())
+        return h.hexdigest()[:16]
+
+    def init_params(self, seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
+        """He-initialised raw weights per node (logical layouts)."""
+        rng = np.random.default_rng(seed)
+        params: Dict[str, Dict[str, np.ndarray]] = {}
+        for nid in self._order:
+            node = self.nodes[nid]
+            if node.kind == "conv":
+                s = node.scn
+                std = float(np.sqrt(2.0 / (s.c * s.k * s.k)))
+                params[nid] = {
+                    "w": rng.normal(0, std, size=s.weight_shape)
+                            .astype(np.float32),
+                    "b": rng.normal(0, 0.01, size=(s.m,)).astype(np.float32),
+                }
+            elif node.kind == "op" and node.op.init_params is not None:
+                in_shapes = [self.nodes[i].out_shape for i in node.inputs]
+                params[nid] = node.op.init_params(rng, in_shapes)
+        return params
+
+
+# ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# op definitions (layout-polymorphic, zero PBQP cost).  ``fn(xs, layout,
+# p)`` takes tensors with a leading batch axis in memory layout
+# ``layout`` and returns one in the same layout.
+# ----------------------------------------------------------------------
+def _c_axis(layout: Layout) -> int:
+    return 1 + layout.perm.index(0)
+
+
+def _on_nchw(x, layout: Layout, fn: Callable):
+    """Apply ``fn`` to an (N, C, H, W) version of ``x``, return ``layout``.
+
+    Unblocked layouts go through a strided view (no copy); the blocked
+    HWC8 through a conversion there and back.
+    """
+    from .primitives import convert_layout
+    if layout.block_c:
+        y = fn(convert_layout(x, layout.name, "CHW"))
+        return convert_layout(y, "CHW", layout.name)
+    inv = np.argsort(layout.perm)
+    y = fn(x.permute(0, *(1 + int(i) for i in inv)))
+    return y.permute(0, *(1 + i for i in layout.perm)).contiguous()
+
+
+def relu() -> OpDef:
+    return OpDef("relu", lambda s: s[0],
+                 lambda xs, layout, p: torch.clamp_min(xs[0], 0.0),
+                 layouts=DEFAULT_OP_LAYOUTS + ("HWC8",))
+
+
+def identity(name: str = "identity") -> OpDef:
+    return OpDef(name, lambda s: s[0], lambda xs, layout, p: xs[0],
+                 layouts=DEFAULT_OP_LAYOUTS + ("HWC8",))
+
+
+def _pool(kind: str, k: int, stride: int, pad: int) -> OpDef:
+    def shape_fn(shapes):
+        c, h, w = shapes[0]
+        oh = (h + 2 * pad - k) // stride + 1
+        ow = (w + 2 * pad - k) // stride + 1
+        return (c, oh, ow)
+
+    def fn(xs, layout, p):
+        if kind == "max":  # padding reads as -inf
+            op = lambda t: F.max_pool2d(t, k, stride, pad)
+        else:              # zero padding counts toward the k*k divisor
+            op = lambda t: F.avg_pool2d(t, k, stride, pad,
+                                        count_include_pad=True)
+        return _on_nchw(xs[0], layout, op)
+
+    return OpDef(f"{kind}pool{k}s{stride}", shape_fn, fn,
+                 layouts=DEFAULT_OP_LAYOUTS + ("HWC8",))
+
+
+def maxpool(k: int, stride: int, pad: int = 0) -> OpDef:
+    return _pool("max", k, stride, pad)
+
+
+def avgpool(k: int, stride: int, pad: int = 0) -> OpDef:
+    return _pool("avg", k, stride, pad)
+
+
+def lrn(size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
+        bias: float = 1.0) -> OpDef:
+    """AlexNet/GoogleNet local response normalisation across channels."""
+    def across(x):  # (N, C, H, W)
+        half = size // 2
+        sq = F.pad(x * x, (0, 0, 0, 0, half, half))
+        c = x.shape[1]
+        s = sq[:, 0:c]
+        for i in range(1, size):
+            s = s + sq[:, i:i + c]
+        return x / (bias + (alpha / size) * s) ** beta
+
+    return OpDef(f"lrn{size}", lambda s: s[0],
+                 lambda xs, layout, p: _on_nchw(xs[0], layout, across))
+
+
+def concat() -> OpDef:
+    """Channel concatenation (inception joins)."""
+    def shape_fn(shapes):
+        c = sum(s[0] for s in shapes)
+        return (c,) + tuple(shapes[0][1:])
+
+    def fn(xs, layout, p):
+        return torch.cat(xs, dim=_c_axis(layout))
+
+    return OpDef("concat", shape_fn, fn)
+
+
+def global_avgpool() -> OpDef:
+    def fn(xs, layout, p):
+        return _on_nchw(xs[0], layout,
+                        lambda t: t.mean(dim=(2, 3), keepdim=True))
+
+    return OpDef("gap", lambda s: (s[0][0], 1, 1), fn)
+
+
+def fc(features: int, relu_after: bool = False) -> OpDef:
+    """Fully connected layer.  Flattens in *logical CHW order* regardless
+    of the arriving layout, so results are layout-invariant."""
+    def shape_fn(shapes):
+        return (features, 1, 1)
+
+    def init_params(rng, in_shapes):
+        n_in = int(np.prod(in_shapes[0]))
+        std = float(np.sqrt(2.0 / n_in))
+        return {"w": rng.normal(0, std, size=(n_in, features))
+                        .astype(np.float32),
+                "b": np.zeros((features,), np.float32)}
+
+    def fn(xs, layout, p):
+        from .primitives import convert_layout
+        x = convert_layout(xs[0], layout.name, "CHW")
+        y = x.reshape(x.shape[0], -1) @ p["w"] + p["b"]
+        if relu_after:
+            y = torch.clamp_min(y, 0.0)
+        # keep a (C, 1, 1) logical shape so further ops compose
+        return convert_layout(y.reshape(-1, features, 1, 1), "CHW",
+                              layout.name)
+
+    return OpDef(f"fc{features}", shape_fn, fn, init_params=init_params)
+
+
+def softmax() -> OpDef:
+    """Softmax over every element of each image, as the reference's."""
+    def fn(xs, layout, p):
+        x = xs[0]
+        return torch.softmax(x.reshape(x.shape[0], -1), dim=1).reshape(
+            x.shape)
+
+    return OpDef("softmax", lambda s: s[0], fn)

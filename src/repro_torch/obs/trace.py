@@ -1,0 +1,157 @@
+"""Request-scoped tracing: nested spans emitted as thread-safe JSONL.
+
+A *span* is one timed region of the serve path (``infer``,
+``plan``, ``pbqp.solve``, ``compile``, ``execute``, ``crop``,
+``queue_wait`` — docs/observability.md lists the schema).  Spans nest
+through a :mod:`contextvars` variable, so the parent/child structure is
+correct across the thread pool the :class:`~repro.serving.server.
+PlanServer` resolves misses on: each worker thread carries its own
+current-span context.
+
+Tracing is OFF by default and the disabled path is a few attribute
+reads — the serve hot path stays uninstrumented-cost until someone
+calls :func:`configure` (the ``--trace`` flag of ``launch/serve.py``).
+Finished spans are written as one JSON line each (children appear
+before their parent, which closes last); the writer holds a lock, so
+concurrent requests interleave whole lines, never bytes.
+
+This module is intentionally stdlib-only: :mod:`repro.core` imports it
+(``pbqp.solve`` / ``compile_plan`` open spans), so it must never import
+back into core.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import io
+import json
+import pathlib
+import threading
+import time
+from typing import Any, Dict, Iterator, List, Optional, Union
+
+__all__ = ["Span", "Tracer", "get_tracer", "configure", "NULL_SPAN"]
+
+
+class Span:
+    """One open region; ``set(**attrs)`` attaches attributes."""
+
+    __slots__ = ("name", "trace_id", "span_id", "parent_id", "t0", "attrs")
+
+    def __init__(self, name: str, trace_id: int, span_id: int,
+                 parent_id: Optional[int], attrs: Dict[str, Any]):
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.t0 = time.perf_counter()
+        self.attrs = attrs
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+
+class _NullSpan:
+    """What call sites get when tracing is disabled: ``set`` is a no-op."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class Tracer:
+    """Span factory + JSONL sink.
+
+    ``sink`` is a path (opened append), a file-like object, or a
+    ``list`` (records appended as dicts — the test/in-memory sink).
+    """
+
+    def __init__(self, sink: Union[None, str, pathlib.Path, list,
+                                   io.IOBase] = None,
+                 enabled: bool = False) -> None:
+        self.enabled = enabled
+        self._lock = threading.Lock()
+        self._ids = 0
+        self._current: contextvars.ContextVar[Optional[Span]] = \
+            contextvars.ContextVar("obs_current_span", default=None)
+        self._records: Optional[List[Dict[str, Any]]] = None
+        self._fh = None
+        if isinstance(sink, list):
+            self._records = sink
+        elif isinstance(sink, (str, pathlib.Path)):
+            self._fh = open(sink, "a")
+        elif sink is not None:
+            self._fh = sink
+
+    # -----------------------------------------------------------------
+    def _next_id(self) -> int:
+        with self._lock:
+            self._ids += 1
+            return self._ids
+
+    def _emit(self, rec: Dict[str, Any]) -> None:
+        with self._lock:
+            if self._records is not None:
+                self._records.append(rec)
+            if self._fh is not None:
+                self._fh.write(json.dumps(rec) + "\n")
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs) -> Iterator[Union[Span, _NullSpan]]:
+        """Open a span; a span with no live parent starts a new trace."""
+        if not self.enabled:
+            yield NULL_SPAN
+            return
+        parent = self._current.get()
+        sid = self._next_id()
+        sp = Span(name, parent.trace_id if parent else sid, sid,
+                  parent.span_id if parent else None, dict(attrs))
+        token = self._current.set(sp)
+        try:
+            yield sp
+        finally:
+            self._current.reset(token)
+            self._emit({"name": sp.name, "trace": sp.trace_id,
+                        "span": sp.span_id, "parent": sp.parent_id,
+                        "t0": sp.t0,
+                        "dur_s": time.perf_counter() - sp.t0,
+                        **sp.attrs})
+
+    def emit(self, name: str, t0: float, t1: float, **attrs) -> None:
+        """Record a span from explicit timestamps (e.g. queue wait:
+        the region opened in ``enqueue`` and closed in ``flush``, on
+        different call stacks, so a context manager cannot cover it).
+        Parented to the caller's current span."""
+        if not self.enabled:
+            return
+        parent = self._current.get()
+        sid = self._next_id()
+        self._emit({"name": name,
+                    "trace": parent.trace_id if parent else sid,
+                    "span": sid,
+                    "parent": parent.span_id if parent else None,
+                    "t0": t0, "dur_s": t1 - t0, **attrs})
+
+    def flush(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                self._fh.flush()
+
+
+#: process-wide tracer; disabled (and sink-less) until configure()
+_TRACER = Tracer()
+
+
+def get_tracer() -> Tracer:
+    return _TRACER
+
+
+def configure(sink=None, enabled: bool = True) -> Tracer:
+    """Replace the global tracer (typically once, at process start)."""
+    global _TRACER
+    _TRACER = Tracer(sink, enabled=enabled)
+    return _TRACER

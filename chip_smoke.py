@@ -12,7 +12,9 @@ checkout of the repository.  Phases, each of which raises on failure:
 2. kernels: each hand-written kernel's binding against its plain PyTorch
    version on the card at AlexNet's (and GoogLeNet's 1x1) shapes, at
    batch 1 and 8, with its time, the plain version's, one library
-   call's and the card's lower bound; then every kernel primitive's
+   call's and the card's lower bound; the layout transforms (K5, bit
+   for bit) and flash attention (K6, every masking and layout option)
+   at the calibration sweep's shapes; then every kernel primitive's
    whole convolution (padding, gathers, transforms, crops and each
    fused layout) at batch 8 against an f64 ``F.conv2d``;
 3. main path: AlexNet at 227x227 through ``select_pbqp`` under the H100
@@ -22,18 +24,26 @@ checkout of the repository.  Phases, each of which raises on failure:
    conv that supports it (AlexNet; GoogLeNet for the 1x1 GEMM), against
    SUM2D at batch 2 and 1;
 5. fused: ``select_pbqp(fuse=True)`` on GoogLeNet against SUM2D;
-6. profiled selection: ``ProfiledCostModel`` on AlexNet, timed.
+6. profiled selection: ``ProfiledCostModel`` on AlexNet, timed;
+7. calibration: ``python -m repro_torch.launch.calibrate`` (its
+   ``main``) sweeps AlexNet's buckets at batch 1 and 8 with the kernel
+   microbenchmarks on; the profile must hold every planned key, a second
+   run must resume with nothing to measure, each of the 56 kernel items
+   must launch exactly one kernel of its own package, and
+   ``CalibratedCostModel`` must select plans, at batch 1 and 8, that
+   agree with SUM2D; a CPU-stamped profile must be refused on the card.
 
 Plans are compared at every conv's output, the pre-softmax logits and
 the probabilities, each within 1e-3 of the reference's largest
 magnitude (the probabilities also at the quickstart's 2e-3).
 
-Every plan run in phases 3-6 is a path: the launch counts are set to 0
+Every plan run in phases 3-7 is a path: the launch counts are set to 0
 just before its one forward and read just after, and must equal one
 launch per conv that its selection gave to each kernel (the batch runs
-on the kernels' grids).  The last lines are a ``{"kernels": [...]}``
-JSON line, the ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+on the kernels' grids).  So is each calibration kernel item: counts at
+0, its builder's function called once, counts read.  The last lines are
+a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -57,6 +67,21 @@ HBM_BW = 3.35e12
 #: largest plain magnitude; bf16 GEMM: one bf16 rounding of the output
 TOL_F32 = 1e-3
 TOL_BF16 = 2e-2
+#: flash attention in f32: kernel and plain version sum the D-term
+#: logits and the Lk-term P V in other orders and round exp/tanh
+#: differently, a few f32 ulps of the output (~1e-6 of its largest
+#: magnitude), so 1e-5; bf16 outputs are rounded to 8 bits, as above.
+#: The layout transforms copy bits: they must be exact.
+TOL_ATTN = 1e-5
+#: the calibration sweep's layout-transform shapes (AlexNet's buckets),
+#: plus a ragged one
+LAYOUT_SHAPES = [(4, 256, 256), (128, 32, 32), (256, 16, 16), (512, 16, 16),
+                 (96, 27, 27)]
+#: phase 7's calibration CLI arguments; the measurement discipline is
+#: the CLI's default (``--reps 3 --min-time 5e-3``)
+CALIB_NET, CALIB_SCALE, CALIB_BATCHES = "alexnet", 1.0, (1, 8)
+CALIB_ARGS = ["--net", CALIB_NET, "--scale", str(CALIB_SCALE), "--batches",
+              *map(str, CALIB_BATCHES), "--kernels", "on"]
 #: plans against SUM2D: every compared output within 1e-3 of the
 #: reference's largest magnitude (errors grow over the layers but stay
 #: f32 rounding); the probabilities also at the quickstart's 2e-3
@@ -76,6 +101,11 @@ SLEEP_CYCLES = 4_000_000
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def gpu_line() -> str:
@@ -133,25 +163,39 @@ def device_profile(torch, fn, calls: int = 3):
 
 
 class KernelReport:
-    """Accumulates one kernel's shapes: error, times and bound."""
+    """Accumulates one kernel's shapes: error, times and bound.
 
-    def __init__(self, name, source, replaces):
+    ``name`` is the kernel's launch counter.  ``on_path``: whether the
+    calibration path launches it (K5b and K5d, the reverse transforms,
+    are reached only through ``convert``, which the sweep does not call
+    in that direction)."""
+
+    def __init__(self, name, source, replaces, on_path=True):
         self.name, self.source, self.replaces = name, source, replaces
-        self.err = 0.0
+        self.on_path = on_path
+        self.err = self.rel_err = 0.0
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.ops_s = self.bytes_s = self.bound_s = 0.0
 
     def compare(self, got, want, tol, what):
+        """Within ``tol`` of the plain version's largest magnitude;
+        ``tol=0`` asks for the same bits."""
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{self.name} {what}: {tuple(got.shape)} {got.dtype} vs "
+              f"{tuple(want.shape)} {want.dtype}")
+        if tol == 0:
+            check(got.equal(want),
+                  f"{self.name} {what}: not bit-exact")
+            return
         got, want = got.float(), want.float()
-        check(got.shape == want.shape,
-              f"{self.name} {what}: shape {tuple(got.shape)} vs "
-              f"{tuple(want.shape)}")
+        check(bool(got.isfinite().all()), f"{self.name} {what}: non-finite")
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         check(err <= tol * max(scale, 1e-30),
               f"{self.name} {what}: max error {err:.3e} > {tol} x "
               f"{scale:.3e}")
         self.err = max(self.err, err)
+        self.rel_err = max(self.rel_err, err / max(scale, 1e-30))
 
     def time(self, torch, what, kernel, plain, library, flops, nbytes):
         ms, pms, lms = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
@@ -169,18 +213,25 @@ class KernelReport:
 
     def entry(self, paths):
         """``paths``: each path's launch counts, in the order run.  The
-        kernel's ``launches`` are those of the first path that ran it
-        (the PBQP main path where it picks the kernel, else the pinned
-        plan at batch 1 that puts it there); every path's own count is
-        listed beside."""
+        kernel's ``launches`` are those of the first plan path that ran
+        it (the PBQP main path where it picks the kernel, else the pinned
+        plan at batch 1 that puts it there); for the kernels that no plan
+        runs (K5, K6), the sum over the calibration path's kernel items,
+        one call each.  Every path's own count is listed beside."""
         by_path = {p: c[self.name] for p, c in paths.items()
                    if c.get(self.name)}
         first = next((p for p in by_path if p.endswith("_b1")), None)
+        if first:
+            launches = by_path[first]
+        else:
+            first = "calibrate_kernel_items"
+            launches = sum(n for p, n in by_path.items()
+                           if p.startswith("calibrate_"))
         return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": self.replaces,
-                "launches": by_path[first] if first else 0,
+                "replaces": self.replaces, "launches": launches,
                 "launches_path": first, "launches_by_path": by_path,
-                "max_abs_err": self.err, "ms": self.ms,
+                "max_abs_err": self.err, "max_rel_err": self.rel_err,
+                "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_s * 1e3,
                 "bound_by": ("operations" if self.ops_s >= self.bytes_s
                              else "bytes"),
@@ -312,6 +363,125 @@ def kernel_phase(torch, F):
     return [k1, k2, k3, k4]
 
 
+def layout_phase(torch, dev):
+    """K5: the four layout-transform entries (one CUDA transpose) against
+    their plain versions, bit for bit, at the sweep's shapes and a ragged
+    one, single and batched, one launch per call.  Timed at the sweep's
+    shapes: CHW -> HWC at conv1's bucket (C % 8 != 0), CHW -> HWC8 at the
+    others, and each reverse entry at the same shapes."""
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.kernels.layout_transform import kernel as lk
+    from repro_torch.kernels.layout_transform import ops as lo
+    from repro_torch.kernels.layout_transform import ref as lr
+
+    src = "src/repro_torch/csrc/layout_transform.cu"
+    ref = "src/repro/kernels/layout_transform/kernel.py"
+    reports = {e: KernelReport(f"layout_transform.{e}", src, f"{ref}:{line}",
+                               on_path=e in ("chw_to_hwc", "chw_to_hwc8"))
+               for e, line in (("chw_to_hwc", 27), ("hwc_to_chw", 43),
+                               ("chw_to_hwc8", 77), ("hwc8_to_chw", 94))}
+    rng = np.random.default_rng(2)
+    for c, h, w in LAYOUT_SHAPES:
+        x = torch.from_numpy(rng.normal(size=(c, h, w)).astype(
+            np.float32)).to(dev)
+        hwc = x.permute(1, 2, 0).contiguous()
+        cases = [("chw_to_hwc", x, lambda a: a.permute(1, 2, 0)),
+                 ("hwc_to_chw", hwc, lambda a: a.permute(2, 0, 1))]
+        if c % 8 == 0:
+            cases += [("chw_to_hwc8", x, lambda a: a.permute(1, 2, 0)),
+                      ("hwc8_to_chw", hwc.reshape(h, w, c // 8, 8),
+                       lambda a: a.reshape(h, w, c).permute(2, 0, 1))]
+        for e, xin, lib in cases:
+            rpt = reports[e]
+            for xx, what in ((xin, "single"),
+                             (torch.stack([xin, -xin]), "batch 2"),
+                             (xin.to(torch.bfloat16), "bf16")):
+                reset_launch_counts()
+                got = getattr(lo, e)(xx)
+                counts = launch_counts()
+                check(counts == {rpt.name: 1},
+                      f"{rpt.name} {what}: launches {counts}")
+                rpt.compare(got, getattr(lr, f"{e}_ref")(xx), 0,
+                            f"{(c, h, w)} {what}")
+            swept = (c, h, w) in LAYOUT_SHAPES[:4]
+            if swept and (c % 8 == 0) == ("8" in e):
+                n = xin.numel()
+                rpt.time(torch, f"{tuple(xin.shape)}",
+                         lambda: getattr(lk, f"{e}_cuda")(xin),
+                         lambda: getattr(lr, f"{e}_ref")(xin),
+                         lambda: lib(xin).contiguous(), 0.0, 2.0 * 4 * n)
+    sync(torch, dev)
+    print("  layout transforms: all four entries bit-exact at "
+          f"{LAYOUT_SHAPES}, single, batch 2 and bf16, one launch each")
+    return list(reports.values())
+
+
+def attention_phase(torch, F, dev):
+    """K6: flash attention against its plain version on the sweep's two
+    shapes and on every option of the kernel, one launch per call."""
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ref)
+
+    rpt = KernelReport("flash_attention",
+                       "src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention/kernel.py:93")
+    rng = np.random.default_rng(3)
+    bf16 = torch.bfloat16
+    # (what, (B, Hq, Hkv, Lq, Lk, D), dtype, options)
+    cases = [
+        ("sweep conv1/conv2", (1, 4, 4, 1024, 1024, 64), None, {}),
+        ("sweep conv3-conv5", (1, 4, 4, 256, 256, 64), None, {}),
+        ("causal", (2, 4, 4, 300, 300, 64), None, dict(causal=True)),
+        ("causal + window", (1, 4, 4, 300, 300, 128), None,
+         dict(causal=True, window=40)),
+        ("softcap", (1, 4, 4, 200, 200, 64), None, dict(softcap=5.0)),
+        ("GQA 8/2", (2, 8, 2, 200, 200, 64), None, {}),
+        ("LHD", (2, 4, 2, 300, 300, 64), None,
+         dict(layout="LHD", causal=True)),
+        ("Lq != Lk, ragged", (1, 4, 4, 77, 45, 128), None, dict(window=9)),
+        ("fully masked rows", (1, 2, 2, 64, 16, 64), None,
+         dict(causal=True, window=8)),
+        ("head dim 256", (1, 4, 4, 130, 130, 256), None, {}),
+        ("bf16", (1, 4, 4, 256, 256, 64), bf16, {}),
+        ("bf16 causal", (1, 4, 2, 200, 200, 128), bf16, dict(causal=True)),
+    ]
+    for what, (b, hq, hkv, lq, lk, d), dtype, kw in cases:
+        lhd = kw.get("layout") == "LHD"
+        qs = (b, lq, hq, d) if lhd else (b, hq, lq, d)
+        ks = (b, lk, hkv, d) if lhd else (b, hkv, lk, d)
+        q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(dev, dtype or torch.float32) for s in (qs, ks, ks))
+        reset_launch_counts()
+        got = flash_attention(q, k, v, **kw)
+        counts = launch_counts()
+        check(counts == {rpt.name: 1}, f"{rpt.name} {what}: launches "
+              f"{counts}")
+        plain = dict(scale=d ** -0.5, seq_major=lhd,
+                     **{o: kw[o] for o in ("causal", "window", "softcap")
+                        if o in kw})
+        rpt.compare(got, flash_attention_ref(q, k, v, **plain),
+                    TOL_BF16 if dtype == bf16 else TOL_ATTN, what)
+        if what == "fully masked rows":
+            # keys 0..15, window 8: rows 23 and up see no key
+            check(bool((got[:, :, 23:] == 0).all()) and
+                  bool((got[:, :, :23].abs().sum(-1) > 0).all()),
+                  f"{rpt.name}: fully masked rows are not exactly 0")
+        if what.startswith("sweep"):
+            rpt.time(torch, f"{what} {qs}",
+                     lambda: flash_attention_cuda(q, k, v, scale=d ** -0.5),
+                     lambda: flash_attention_ref(q, k, v, scale=d ** -0.5),
+                     lambda: F.scaled_dot_product_attention(q, k, v),
+                     4.0 * b * hq * lq * lk * d,
+                     4.0 * (2 * q.numel() + k.numel() + v.numel()))
+    sync(torch, dev)
+    print(f"  flash attention: {len(cases)} cases within {TOL_ATTN} (f32) "
+          f"/ {TOL_BF16} (bf16) of the largest plain magnitude, fully "
+          f"masked rows exactly 0, one launch each")
+    return [rpt]
+
+
 def conv_phase(torch, F):
     """Every kernel primitive's whole convolution at batch 8, in its
     native and each fused layout, against an f64 ``F.conv2d``: the code
@@ -402,6 +572,167 @@ def expected_launches(sel):
     return want
 
 
+def run_calibrate_cli(cli, argv, log):
+    """``repro_torch.launch.calibrate.main(argv)`` with its output (one
+    line per measurement) written to ``log``; returns that output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    log.write(f"$ calibrate {' '.join(argv)}\n{text}")
+    check(rc == 0, f"calibrate {argv} exited {rc}")
+    for line in text.splitlines():
+        if line.startswith(("sweep plan", "device ", "measured ")):
+            print(f"  {line}")
+    return text
+
+
+def calibration_phase(torch, dev, out_dir, run_path, paths, net, params,
+                      inputs, sum2d, taps_, plans):
+    """Phase 7: the calibration CLI on the card, then selection on its
+    profile.  ``inputs``/``sum2d``: batch -> input and SUM2D outputs at
+    ``taps_``; ``plans``: name -> (batch, compiled plan) timed beside the
+    calibrated plans."""
+    import collections
+    import re
+
+    from repro_torch.calibrate import (CalibratedCostModel, HardwareProfile,
+                                       plan_sweep, registry_hash,
+                                       scenarios_from_net)
+    from repro_torch.calibrate.sweep import _kernel_benchmarks
+    from repro_torch.convnets import NETWORKS
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.core.plan import compile_plan, measure
+    from repro_torch.core.selection import select_pbqp
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.launch import calibrate as cli
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof_path = out_dir / "alexnet_profile.json"
+    prof_path.unlink(missing_ok=True)
+    argv = ["--out", str(prof_path)] + CALIB_ARGS
+    with open(out_dir / "calibrate.log", "w") as log:
+        t0 = time.perf_counter()
+        run_calibrate_cli(cli, argv, log)
+        sweep_s = time.perf_counter() - t0
+        prof = HardwareProfile.load(prof_path)
+        default = (prof.reps, prof.min_time) == (3, 5e-3)
+        print(f"  sweep wall time {sweep_s:.1f} s at reps={prof.reps}, "
+              f"min_time={prof.min_time}"
+              f"{' (the CLI default)' if default else ''}; log and profile "
+              f"in {out_dir}")
+
+        # every planned key, by the port's own plan
+        scns = scenarios_from_net(NETWORKS[CALIB_NET](CALIB_SCALE),
+                                  batches=CALIB_BATCHES)
+        items = plan_sweep(scns, exclude_tags=(), kernels=True, device=dev)
+        kinds = collections.Counter(it.kind for it in items)
+        missing = [it.key for it in items if it.key not in prof]
+        check(not missing and len(prof) == len(items),
+              f"profile holds {len(prof)} entries for {len(items)} planned "
+              f"keys; missing {missing[:5]}")
+        print(f"  profile holds every planned key: {len(items)} "
+              f"({dict(kinds)}), device {prof.device}")
+        slow = sorted(prof.entries.items(), key=lambda kv: -kv[1])[:5]
+        print("  slowest entries: " + ", ".join(
+            f"{k} {v * 1e3:.3f} ms" for k, v in slow))
+
+        # resumption: a second run on the same profile measures nothing
+        text = run_calibrate_cli(cli, argv, log)
+        m = re.search(r"^measured (\d+), skipped (\d+)", text, re.M)
+        check(m is not None and int(m.group(1)) == 0
+              and int(m.group(2)) == len(items),
+              f"resumed sweep: {m.group(0) if m else text[-300:]}")
+
+    # each kernel item is a path: exactly one launch of its own kernel
+    kernel_keys = []
+    for scn in scns:  # already bucketed
+        for kname, entry in _kernel_benchmarks():
+            builder = entry(scn, device=dev)
+            if builder is None:
+                continue
+            fn, args = builder()
+            sync(torch, dev)
+            reset_launch_counts()
+            fn(*args)
+            sync(torch, dev)
+            counts = launch_counts()
+            paths[f"calibrate_{kname}_{scn.key()}"] = counts
+            want = {kname: 1}
+            if kname == "layout_transform":
+                entry_ = "chw_to_hwc8" if scn.c % 8 == 0 else "chw_to_hwc"
+                want = {f"layout_transform.{entry_}": 1}
+            check(counts == want, f"kernel item {kname} @ {scn.key()}: "
+                  f"launches {counts}, expected {want}")
+            kernel_keys.append(f"kernel::{kname}::{scn.key()}")
+    check(sorted(kernel_keys) == sorted(it.key for it in items
+                                        if it.kind == "kernel"),
+          "the kernel items run differ from the planned ones")
+    per_pkg = collections.Counter(k.split("::")[1] for k in kernel_keys)
+    print(f"  {len(kernel_keys)} kernel items, one launch each of their own "
+          f"kernel: {dict(per_pkg)}")
+
+    class Fallback(AnalyticCostModel):
+        """``H100_SPEC``, recording what the profile leaves to it (fused
+        edges fall back through ``transform_cost``)."""
+
+        def __init__(self):
+            super().__init__(H100_SPEC)
+            self.seen = collections.Counter()
+
+        def primitive_cost(self, prim, scn):
+            self.seen[f"primitive {prim.name}"] += 1
+            return super().primitive_cost(prim, scn)
+
+        def transform_cost(self, src, dst, shape_chw, dtype):
+            self.seen[f"transform {'x'.join(map(str, shape_chw))}"] += 1
+            return super().transform_cost(src, dst, shape_chw, dtype)
+
+    # selection on the measured profile, at batch 1 and 8
+    for b in CALIB_BATCHES:
+        fallback = Fallback()
+        cost = CalibratedCostModel(prof, fallback=fallback, device=dev)
+        nb = net if b == 1 else net.with_batch(b)
+        csel = select_pbqp(nb, cost)
+        prim_fb = [k for k in fallback.seen if k.startswith("primitive")]
+        check(not prim_fb, f"primitive lookups fall back: {prim_fb[:5]}")
+        print(f"  calibrated PBQP, batch {b}: optimal={csel.optimal}, "
+              f"predicted {csel.predicted_cost * 1e3:.4f} ms, table_hits "
+              f"{cost.table_hits}, fallback_hits {cost.fallback_hits} "
+              f"(none for a primitive; {dict(fallback.seen)}), "
+              f"{len(csel.conversions)} conversions")
+        for nd in nb.conv_nodes():
+            ch = csel.choices[nd.id]
+            print(f"    {nd.id:6s} -> {ch.primitive.name} [{ch.l_in}->"
+                  f"{ch.l_out}]")
+        cnet = compile_plan(csel, params, batch=b, device=dev)
+        x = inputs[b]
+        run_path(f"calibrated_pbqp_alexnet_b{b}", cnet, x)
+        agree(compile_plan(csel, params, batch=b, device=dev,
+                           outputs=taps_)(x), sum2d[b],
+              f"calibrated PBQP vs SUM2D, batch {b}")
+        plans[f"calibrated PBQP, batch {b}"] = (b, cnet)
+    print(f"  calibrated plans agree with SUM2D at batch 1 and 8 at "
+          f"{len(taps_)} outputs (every conv and the logits)")
+    for what, (b, cn) in plans.items():
+        t = measure(cn, inputs[b], reps=20)
+        print(f"  host clock, 20 forwards: {what}: mean "
+              f"{t['mean_s'] * 1e3:.4f} ms (min {t['min_s'] * 1e3:.4f}, "
+              f"std {t['std_s'] * 1e3:.4f})")
+
+    # the device guard: a CPU profile must not price the card
+    stale = HardwareProfile(device="cpu:cpu:n1", registry=registry_hash(),
+                            entries=dict(prof.entries))
+    try:
+        CalibratedCostModel(stale, device=dev)
+    except ValueError as e:
+        print(f"  a profile stamped cpu:cpu:n1 is refused: {e}")
+    else:
+        check(False, "CalibratedCostModel took a CPU profile on the card")
+
+
 def main() -> int:
     try:
         import torch
@@ -446,8 +777,10 @@ def main() -> int:
     print("== kernels (device ms per call: CUDA events over 20 queued "
           "calls, median of 5; bound = max(flops / 67e12, bytes / "
           "3.35e12)) ==")
+    dev = torch.device("cuda")
     with true_f32():
-        reports = kernel_phase(torch, F)
+        reports = (kernel_phase(torch, F) + layout_phase(torch, dev)
+                   + attention_phase(torch, F, dev))
         print("== whole convolutions of the kernel primitives against f64 "
               "F.conv2d ==")
         conv_phase(torch, F)
@@ -556,10 +889,6 @@ def main() -> int:
               f"{prim.name} pinned on {n_.name}, batch 1")
         print(f"  {prim.name:22s} on {len(pick):2d} convs of {n_.name}: "
               f"agrees with SUM2D at batch 2 and 1")
-    for r in reports:
-        check(any(c.get(r.name) for c in paths.values()),
-              f"kernel {r.name} never launched on a path")
-
     # ---- 5. fused selection on GoogLeNet ----
     fsel = select_pbqp(gnet, cost, fuse=True)
     run_path("fused_pbqp_googlenet_b2", compile_plan(fsel, gparams, batch=2),
@@ -585,6 +914,19 @@ def main() -> int:
         ch = psel.choices[node.id]
         print(f"  {node.id:6s} -> {ch.primitive.name} [{ch.l_in}->"
               f"{ch.l_out}]")
+
+    # ---- 7. calibration on the card, and selection on its profile ----
+    print("== calibration: python -m repro_torch.launch.calibrate "
+          f"{' '.join(CALIB_ARGS)} ==")
+    calibration_phase(
+        torch, dev, ROOT / "build" / "calibration", run_path, paths,
+        net, params, {1: x1, 8: x8},
+        {1: {k: v[0] for k, v in base_t.items()}, 8: base_t}, t_,
+        {"H100_SPEC PBQP, batch 1": (1, opt), "SUM2D, batch 1": (1, base),
+         "H100_SPEC PBQP, batch 8": (8, opt8), "SUM2D, batch 8": (8, base8)})
+    for r in reports:
+        check(not r.on_path or any(c.get(r.name) for c in paths.values()),
+              f"kernel {r.name} never launched on a path")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [r.entry(paths) for r in reports]}))

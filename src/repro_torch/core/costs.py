@@ -26,6 +26,7 @@ import json
 import os
 import pathlib
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -41,7 +42,7 @@ from .scenario import Scenario
 __all__ = ["CostModel", "ProfiledCostModel", "AnalyticCostModel",
            "HardwareSpec", "CPU_SPEC", "H100_SPEC",
            "COST_MODEL_SCHEMA", "FUSED_TRANSFORM_DISCOUNT", "time_callable",
-           "measure_primitive", "measure_fused_primitive",
+           "MeasureCache", "measure_primitive", "measure_fused_primitive",
            "measure_transform", "prim_cost_key", "transform_cost_key",
            "fused_cost_key", "collective_cost_key", "ring_ag_bytes",
            "all_gather_time", "reduce_scatter_time", "all_reduce_time",
@@ -221,32 +222,84 @@ def fused_cost_key(kind: str, name: str, layout: str, scn: Scenario) -> str:
     return f"fuse{kind}::{name}::{layout}::{scn.key()}"
 
 
-def _synth(prim: Primitive, scn: Scenario, layout: str, device):
+class MeasureCache:
+    """Seed-0 draws and packed weights shared by a run of measurements.
+
+    A calibration sweep measures every primitive of a scenario bucket,
+    natively and once per fused layout, at batch 1 and 8, on the same
+    draws; packing the weights (``prim.prepare``: FFT and Winograd weight
+    transforms in numpy) then takes more host time than the measurements
+    themselves.  This keeps the newest draws and packings, so each
+    (primitive, bucket) is packed once.  The values are what an uncached
+    measurement makes, and packing stays outside the timed region.
+    """
+
+    #: entries kept: one bucket's primitives
+    SIZE = 64
+
+    def __init__(self) -> None:
+        self._draws: "OrderedDict[Scenario, tuple]" = OrderedDict()
+        self._packed: "OrderedDict[tuple, Dict[str, torch.Tensor]]" = \
+            OrderedDict()
+
+    @staticmethod
+    def _get(table: OrderedDict, key, make):
+        if key in table:
+            table.move_to_end(key)
+        else:
+            table[key] = make()
+            while len(table) > MeasureCache.SIZE:
+                table.popitem(last=False)
+        return table[key]
+
+    def draws(self, scn: Scenario):
+        """Weights, bias and logical (N)CHW input, drawn in that order
+        from ``default_rng(0)``."""
+        def make():
+            rng = np.random.default_rng(0)
+            w = (rng.normal(size=scn.weight_shape) * 0.1).astype(np.float32)
+            b = rng.normal(size=(scn.m,)).astype(np.float32)
+            x = rng.normal(size=scn.in_shape_chw if scn.n == 1
+                           else scn.in_shape_nchw).astype(np.float32)
+            return w, b, x
+        return self._get(self._draws, scn, make)
+
+    def packed(self, prim: Primitive, scn: Scenario, device):
+        """``prim.prepare`` of the scenario's weights, on ``device``
+        (packing does not depend on the batch)."""
+        def make():
+            w, b, _ = self.draws(scn)
+            return {k: v.to(device) for k, v in
+                    prim.prepare(scn, w.copy(), b.copy()).items()}
+        return self._get(self._packed,
+                         (prim.name, scn.with_(n=1), str(device)), make)
+
+
+def _synth(prim: Primitive, scn: Scenario, layout: str, device,
+           cache: Optional[MeasureCache]):
     """Packed weights and an input in ``layout`` at the scenario's real
     sizes, on ``device`` (single image for n == 1, else batched)."""
-    rng = np.random.default_rng(0)
-    w = (rng.normal(size=scn.weight_shape) * 0.1).astype(np.float32)
-    b = rng.normal(size=(scn.m,)).astype(np.float32)
-    packed = {k: v.to(device) for k, v in prim.prepare(scn, w, b).items()}
+    cache = cache or MeasureCache()
     lay = LAYOUT_BY_NAME[layout]
-    if scn.n == 1:
-        x = lay.to_memory(rng.normal(size=scn.in_shape_chw)
-                          .astype(np.float32))
-    else:
-        xs = rng.normal(size=scn.in_shape_nchw).astype(np.float32)
-        x = np.stack([lay.to_memory(x) for x in xs])
-    return to_tensor(x).to(device), packed
+    _, _, x = cache.draws(scn)
+    x = lay.to_memory(x) if scn.n == 1 else \
+        np.stack([lay.to_memory(xi) for xi in x])
+    return (to_tensor(x).to(device, copy=True),
+            cache.packed(prim, scn, device))
 
 
 def measure_primitive(prim: Primitive, scn: Scenario, *, reps: int = 3,
-                      min_time: float = 5e-3, device=None) -> float:
+                      min_time: float = 5e-3, device=None,
+                      cache: Optional[MeasureCache] = None) -> float:
     """On-device wall time of one (primitive, scenario) pair (seconds).
 
     Weights are packed once via ``prim.prepare`` (deployment-time work,
-    excluded from the measurement); for ``scn.n > 1`` the whole batched
+    excluded from the measurement; ``cache`` shares it between the
+    measurements of a sweep); for ``scn.n > 1`` the whole batched
     invocation is timed, as ``compile_plan(batch=n)`` runs it.
     """
-    xin, packed = _synth(prim, scn, prim.l_in, resolve_device(device))
+    xin, packed = _synth(prim, scn, prim.l_in, resolve_device(device),
+                         cache)
     return time_callable(prim.make(scn), (xin, packed), reps=reps,
                          min_time=min_time)
 
@@ -255,12 +308,13 @@ def measure_fused_primitive(prim: Primitive, scn: Scenario, *,
                             l_in: Optional[str] = None,
                             l_out: Optional[str] = None,
                             reps: int = 3, min_time: float = 5e-3,
-                            device=None) -> float:
+                            device=None,
+                            cache: Optional[MeasureCache] = None) -> float:
     """On-device wall time of one *fused* invocation (seconds): the input
     in the fused ``l_in`` layout, the callable
     ``prim.make_fused(scn, l_in, l_out)``."""
     xin, packed = _synth(prim, scn, l_in or prim.l_in,
-                         resolve_device(device))
+                         resolve_device(device), cache)
     return time_callable(prim.make_fused(scn, l_in=l_in, l_out=l_out),
                          (xin, packed), reps=reps, min_time=min_time)
 

@@ -5,6 +5,12 @@ Each kernel lives in its own subpackage, at the reference's path:
   ops.py    — the wrapper: kernel for CUDA tensors, plain version for
               CPU tensors, and the launch count
   ref.py    — the plain PyTorch version, compared with the kernel
+  bench.py  — ``benchmark_entry``, the calibration sweep's standalone
+              microbenchmark of the kernel at one scenario
+
+``layout_transform`` and ``flash_attention`` are not primitives: the
+calibration sweep times them (``calibrate.sweep``), as the reference's
+sweep times its Pallas counterparts.
 
 ``register_pallas_primitives`` plugs the convolution kernels into the
 primitive registry as the ``pallas`` family, under the reference's five
@@ -23,9 +29,11 @@ __all__ = ["register_pallas_primitives", "kernel_libs"]
 def kernel_libs():
     """Every CUDA library the kernels load (for ``common.build_all``)."""
     from .conv_direct.kernel import LIB as direct
+    from .flash_attention.kernel import LIB as flash
+    from .layout_transform.kernel import LIB as layout
     from .matmul.kernel import LIB as matmul
     from .winograd_gemm.kernel import LIB as wino
-    return [matmul, wino, direct]
+    return [matmul, wino, direct, layout, flash]
 
 
 def register_pallas_primitives(add, _sup) -> None:

@@ -1,4 +1,5 @@
+from .bench import benchmark_entry
 from .ops import conv_im2col, im2col_gemm
 from .ref import conv_im2col_ref
 
-__all__ = ["conv_im2col", "conv_im2col_ref", "im2col_gemm"]
+__all__ = ["benchmark_entry", "conv_im2col", "conv_im2col_ref", "im2col_gemm"]

@@ -8,9 +8,12 @@ file imports no JAX (the card's machine has none); run it there with
 
 Tolerances: f32 within 1e-3 of the largest plain magnitude (TF32 off;
 the kernel and cuBLAS sum in different orders), bf16 within 2e-2 (one
-bf16 rounding of the output).  The whole convolutions (the code around
-the kernels: padding, patch gathers, Winograd transforms, crops) are
-held to the same 1e-3 against an f64 ``F.conv2d``.
+bf16 rounding of the output).  The layout transforms copy bits and must
+be exact; flash attention in f32 within 1e-5 of the largest plain
+magnitude (other summation orders over D and Lk terms, a few ulps).
+The whole convolutions (the code around the kernels: padding, patch
+gathers, Winograd transforms, crops) are held to the same 1e-3 against
+an f64 ``F.conv2d``.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import common
 from repro_torch.kernels.conv_direct import conv_direct, conv_direct_ref
 from repro_torch.kernels.conv_im2col import conv_im2col
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.layout_transform import ops as lt_ops
+from repro_torch.kernels.layout_transform import ref as lt_ref
 from repro_torch.kernels.matmul import matmul, matmul_ref
 from repro_torch.kernels.winograd_gemm import (bgemm_ref, conv_winograd,
                                                prepare_kernel, winograd_bgemm)
@@ -110,3 +117,43 @@ class TestOnCard:
         if lo == "HWC":
             got = got.permute(0, 3, 1, 2)
         self._close(got, want, 1e-3)
+
+    @pytest.mark.parametrize("entry", ["chw_to_hwc", "hwc_to_chw",
+                                       "chw_to_hwc8", "hwc8_to_chw"])
+    def test_layout_transform(self, cuda, entry):
+        x = torch.from_numpy(_data(7, (2, 96, 27, 27))[0]).to(cuda)
+        hwc = x.permute(0, 2, 3, 1).contiguous()
+        src = {"chw_to_hwc": x, "chw_to_hwc8": x, "hwc_to_chw": hwc,
+               "hwc8_to_chw": hwc.reshape(2, 27, 27, 12, 8)}[entry]
+        common.reset_launch_counts()
+        got = getattr(lt_ops, entry)(src)
+        assert common.launch_counts() == {f"layout_transform.{entry}": 1}
+        assert torch.equal(got, getattr(lt_ref, f"{entry}_ref")(src))
+
+    @pytest.mark.parametrize("dims,dtype,kw", [
+        ((1, 4, 4, 256, 256, 64), torch.float32, {}),
+        ((2, 4, 4, 300, 300, 128), torch.float32,
+         dict(causal=True, window=40)),
+        ((1, 4, 4, 200, 200, 64), torch.float32, dict(softcap=5.0)),
+        ((2, 8, 2, 150, 150, 64), torch.float32,
+         dict(layout="LHD", causal=True)),
+        ((1, 2, 2, 64, 16, 64), torch.float32, dict(causal=True, window=8)),
+        ((1, 4, 2, 130, 77, 256), torch.bfloat16, {}),
+    ])
+    def test_flash_attention(self, cuda, dims, dtype, kw):
+        b, hq, hkv, lq, lk, d = dims
+        lhd = kw.get("layout") == "LHD"
+        qs = (b, lq, hq, d) if lhd else (b, hq, lq, d)
+        ks = (b, lk, hkv, d) if lhd else (b, hkv, lk, d)
+        q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+                   for a in _data(8, qs, ks, ks))
+        common.reset_launch_counts()
+        got = flash_attention(q, k, v, **kw)
+        assert common.launch_counts() == {"flash_attention": 1}
+        want = flash_attention_ref(
+            q, k, v, scale=d ** -0.5, seq_major=lhd,
+            **{o: kw[o] for o in ("causal", "window", "softcap") if o in kw})
+        assert got.dtype == dtype and bool(got.isfinite().all())
+        self._close(got, want, 1e-5 if dtype == torch.float32 else 2e-2)
+        if lk == 16:  # window 8 over keys 0..15: rows 23 and up see none
+            assert bool((got[:, :, 23:] == 0).all())

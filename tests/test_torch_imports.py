@@ -19,7 +19,8 @@ VERBATIM = ["core/scenario.py", "core/layouts.py",
             "core/winograd_transforms.py", "core/ioutil.py", "core/pbqp.py",
             "core/choice_space.py", "core/selection.py", "obs/trace.py",
             "obs/metrics.py", "convnets/alexnet.py", "convnets/vgg.py",
-            "convnets/googlenet.py", "convnets/__init__.py"]
+            "convnets/googlenet.py", "convnets/__init__.py",
+            "serving/bucketing.py"]
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -61,7 +62,18 @@ def test_fresh_import_loads_no_jax_and_no_reference():
                 "repro_torch.kernels.conv_direct.kernel",
                 "repro_torch.kernels.winograd_gemm.ops",
                 "repro_torch.kernels.conv_im2col.ops",
-                "repro_torch.convnets.alexnet", "repro_torch.obs.trace"}
+                "repro_torch.convnets.alexnet", "repro_torch.obs.trace",
+                "repro_torch.serving.bucketing", "repro_torch.calibrate.model",
+                "repro_torch.calibrate.profile", "repro_torch.calibrate.sweep",
+                "repro_torch.launch.calibrate",
+                "repro_torch.kernels.layout_transform.kernel",
+                "repro_torch.kernels.layout_transform.bench",
+                "repro_torch.kernels.flash_attention.kernel",
+                "repro_torch.kernels.flash_attention.bench",
+                "repro_torch.kernels.matmul.bench",
+                "repro_torch.kernels.conv_direct.bench",
+                "repro_torch.kernels.conv_im2col.bench",
+                "repro_torch.kernels.winograd_gemm.bench"}
     assert expected <= set(rep["modules"])
 
 

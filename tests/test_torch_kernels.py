@@ -297,7 +297,8 @@ class TestDispatch:
         from repro_torch.kernels import kernel_libs
         libs = kernel_libs()
         assert {lib.source.name for lib in libs} == {
-            "matmul.cu", "winograd_gemm.cu", "conv_direct.cu"}
+            "matmul.cu", "winograd_gemm.cu", "conv_direct.cu",
+            "layout_transform.cu", "flash_attention.cu"}
         for lib in libs:
             assert lib.source.exists()
             assert lib.so_path.parent == common.BUILD_DIR

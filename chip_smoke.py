@@ -8,11 +8,16 @@ Needs one CUDA card (the kernels are built for Hopper, sm_90a) and
 checkout of the repository.  Phases, each of which raises on failure:
 
 1. environment: card, power limit, versions; build every CUDA kernel
-   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
+   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel)
+   and print each kernel's registers, shared memory and spills as
+   ``nvcc -Xptxas -v`` reports them (the GEMM mainloop's kernels must
+   spill nothing);
 2. kernels: each hand-written kernel's binding against its plain PyTorch
    version on the card at AlexNet's (and GoogLeNet's 1x1) shapes, at
    batch 1 and 8, with its time, the plain version's, one library
-   call's and the card's lower bound; the layout transforms (K5, bit
+   call's and the card's lower bound, and for the GEMM and the direct
+   conv the launch planner's choice (tile, K splits, blocks) and a
+   second call that must give the same bits; the layout transforms (K5, bit
    for bit) and flash attention (K6, every masking and layout option)
    at the calibration sweep's shapes; then every kernel primitive's
    whole convolution (padding, gathers, transforms, crops and each
@@ -177,6 +182,12 @@ class KernelReport:
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.ops_s = self.bytes_s = self.bound_s = 0.0
 
+    def same_bits(self, fn, what):
+        """Two calls give the same bits: the split-K sum has a fixed
+        order (no atomics)."""
+        check(bool(fn().equal(fn())), f"{self.name} {what}: two calls "
+              "differ")
+
     def compare(self, got, want, tol, what):
         """Within ``tol`` of the plain version's largest magnitude;
         ``tol=0`` asks for the same bits."""
@@ -197,7 +208,8 @@ class KernelReport:
         self.err = max(self.err, err)
         self.rel_err = max(self.rel_err, err / max(scale, 1e-30))
 
-    def time(self, torch, what, kernel, plain, library, flops, nbytes):
+    def time(self, torch, what, kernel, plain, library, flops, nbytes,
+             plan=None):
         ms, pms, lms = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
                         cuda_ms(torch, library))
         o, b = flops / PEAK_F32, nbytes / HBM_BW
@@ -209,7 +221,8 @@ class KernelReport:
         self.bound_s += max(o, b)
         print(f"  {self.name:14s} {what:34s} kernel {ms:.4f} ms  plain "
               f"{pms:.4f} ms  library {lms:.4f} ms  bound "
-              f"{max(o, b) * 1e3:.4f} ms ({'ops' if o >= b else 'bytes'})")
+              f"{max(o, b) * 1e3:.4f} ms ({'ops' if o >= b else 'bytes'})"
+              + (f"  [{plan.describe()}]" if plan is not None else ""))
 
     def entry(self, paths):
         """``paths``: each path's launch counts, in the order run.  The
@@ -238,11 +251,52 @@ class KernelReport:
                 "library_ms": self.library_ms}
 
 
+#: the sources on the GEMM mainloop (``csrc/sgemm_sm90.cuh``), whose
+#: kernels must spill nothing
+MAINLOOP_SOURCES = ("matmul.cu", "conv_direct.cu")
+
+
+def demangle(names):
+    """C++ names as ``c++filt`` gives them, without the namespaces and
+    the argument list; the mangled names where it is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+    short = []
+    for name in out:
+        for ns in ("repro::sm90::", "(anonymous namespace)::", "void "):
+            name = name.replace(ns, "")
+        short.append(name.split("(")[0] if "(" in name else name)
+    return short if len(short) == len(names) else list(names)
+
+
+def ptxas_phase(libs):
+    """Each kernel's registers, static shared memory, stack and spill
+    bytes from its library's ``-Xptxas -v`` report."""
+    from repro_torch.kernels.common import ptxas_usage
+    for lib in libs:
+        usage = ptxas_usage(lib.ptxas_report())
+        check(bool(usage), f"{lib.source.name}: no kernel in the ptxas "
+              "report")
+        for name, (fn, u) in zip(demangle(list(usage)), usage.items()):
+            print(f"  ptxas {lib.source.name:20s} {name[:60]:60s} "
+                  f"{u['registers']:3d} registers, {u['smem']} B static "
+                  f"smem, {u['stack']} B stack, {u['spill']} B spilled")
+            if lib.source.name in MAINLOOP_SOURCES:
+                check(u["spill"] == 0, f"{lib.source.name} {fn} spills "
+                      f"{u['spill']} bytes")
+
+
 def kernel_phase(torch, F):
     from repro_torch.convnets import alexnet, googlenet
     from repro_torch.kernels.conv_direct import conv_direct_cuda, \
-        conv_direct_ref
-    from repro_torch.kernels.matmul import matmul_cuda, matmul_ref
+        conv_direct_ref, conv_plan
+    from repro_torch.kernels.matmul import matmul_cuda, matmul_plan, \
+        matmul_ref
+    from repro_torch.kernels.matmul.plan import vector_width
     from repro_torch.kernels.winograd_gemm import bgemm_ref, \
         winograd_bgemm_cuda
 
@@ -274,10 +328,12 @@ def kernel_phase(torch, F):
                 k2.compare(matmul_cuda(w, pp, out_layout=out),
                            matmul_ref(w, pp, out_layout=out), TOL_F32,
                            f"{nid} {out} batch {nb}")
+                k2.same_bits(lambda: matmul_cuda(w, pp, out_layout=out),
+                             f"{nid} {out} batch {nb}")
         k2.time(torch, f"{nid} ({m}x{kk} @ {kk}x{n})",
                 lambda: matmul_cuda(w, p), lambda: matmul_ref(w, p),
                 lambda: torch.matmul(w, p), 2.0 * m * n * kk,
-                4.0 * (m * kk + kk * n + m * n))
+                4.0 * (m * kk + kk * n + m * n), matmul_plan(w, p))
 
     # K1: GoogLeNet 1x1 GEMMs, both layouts, with/without bias + ReLU
     pw = {}
@@ -291,30 +347,33 @@ def kernel_phase(torch, F):
             a = w.T.contiguous() if lhs == "km" else w
             for out in ("mn", "nm"):
                 for bias, relu in ((None, False), (b, True)):
-                    k1.compare(
-                        matmul_cuda(a, x, bias, fuse_relu=relu,
-                                    lhs_layout=lhs, out_layout=out),
-                        matmul_ref(a, x, bias, fuse_relu=relu,
-                                   lhs_layout=lhs, out_layout=out),
-                        TOL_F32, f"{nid} {lhs}/{out} bias={relu}")
+                    kw = dict(fuse_relu=relu, lhs_layout=lhs,
+                              out_layout=out)
+                    k1.compare(matmul_cuda(a, x, bias, **kw),
+                               matmul_ref(a, x, bias, **kw), TOL_F32,
+                               f"{nid} {lhs}/{out} bias={relu}")
+                    k1.same_bits(lambda: matmul_cuda(a, x, bias, **kw),
+                                 f"{nid} {lhs}/{out} bias={relu}")
         # batch 8 as the 1x1 primitive runs it: a CHW batch (N, C, OHOW)
         # and an HWC batch (N, OHOW, C) against the strided w.T
         x8, xt8 = rand(8, c, n), rand(8, n, c)
         for out in ("mn", "nm"):
-            k1.compare(matmul_cuda(w, x8, out_layout=out),
-                       matmul_ref(w, x8, out_layout=out), TOL_F32,
-                       f"{nid} CHW batch 8 {out}")
-            k1.compare(matmul_cuda(xt8, w.T, out_layout=out),
-                       matmul_ref(xt8, w.T, out_layout=out), TOL_F32,
-                       f"{nid} HWC batch 8 {out}")
+            for lhs_, rhs_, what in ((w, x8, "CHW"), (xt8, w.T, "HWC")):
+                k1.compare(matmul_cuda(lhs_, rhs_, out_layout=out),
+                           matmul_ref(lhs_, rhs_, out_layout=out), TOL_F32,
+                           f"{nid} {what} batch 8 {out}")
+                k1.same_bits(lambda: matmul_cuda(lhs_, rhs_, out_layout=out),
+                             f"{nid} {what} batch 8 {out}")
         xb, wb, bb = (t.to(torch.bfloat16) for t in (x, w, b))
         k1.compare(matmul_cuda(wb, xb, bb, fuse_relu=True),
                    matmul_ref(wb, xb, bb, fuse_relu=True), TOL_BF16,
                    f"{nid} bf16")
+        k1.same_bits(lambda: matmul_cuda(wb, xb, bb, fuse_relu=True),
+                     f"{nid} bf16")
         k1.time(torch, f"{nid} ({m}x{c} @ {c}x{n})",
                 lambda: matmul_cuda(w, x), lambda: matmul_ref(w, x),
                 lambda: torch.matmul(w, x), 2.0 * m * n * c,
-                4.0 * (m * c + c * n + m * n))
+                4.0 * (m * c + c * n + m * n), matmul_plan(w, x))
 
     # K3: conv3..conv5 at F(2,3) and F(4,3)
     for nid in ("conv3", "conv4", "conv5"):
@@ -349,6 +408,8 @@ def kernel_phase(torch, F):
                     k4.compare(conv_direct_cuda(xx, w, b, **kw),
                                conv_direct_ref(xx, w, b, **kw), TOL_F32,
                                f"{nid} {li}->{lo} batch {nb}")
+                    k4.same_bits(lambda: conv_direct_cuda(xx, w, b, **kw),
+                                 f"{nid} {li}->{lo} batch {nb}")
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         kw = dict(stride=s.stride, pad=s.pad)
         ohow = s.out_h * s.out_w
@@ -358,7 +419,9 @@ def kernel_phase(torch, F):
                 lambda: F.conv2d(x_chw, w_oihw, b, s.stride, s.pad),
                 2.0 * ohow * s.m * s.k * s.k * s.c + ohow * s.m,
                 4.0 * (s.c * s.h * s.w + s.k * s.k * s.c * s.m + s.m
-                       + ohow * s.m))
+                       + ohow * s.m),
+                conv_plan(1, s.c, s.m, s.k, s.out_h, s.out_w, False,
+                          vector_width(w.view(-1, s.m), 1)))
     torch.cuda.synchronize()
     return [k1, k2, k3, k4]
 
@@ -772,6 +835,7 @@ def main() -> int:
     print(f"built {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(p.name for p in libs))
+    ptxas_phase(kernel_libs())
 
     # ---- 2. kernels against their plain versions ----
     print("== kernels (device ms per call: CUDA events over 20 queued "

@@ -14,84 +14,172 @@
 // above the f32 CUDA-core ridge (20): bound by operations.
 //
 // Design: the TPU kernel keeps the whole padded input strip resident in
-// VMEM and does one MXU GEMM per tap.  Here a block has at most 227 KB
+// VMEM and does one MXU GEMM per tap.  A Hopper block has at most 227 KB
 // of shared memory while AlexNet's conv1 strip alone is 618 KB, so the
-// kernel tiles the output instead: 64 output pixels by 64 output
-// channels per block, and the contraction over the flattened (tap,
-// channel) index r = (i*K + j)*C + c loops inside the block in chunks
-// of 16 (tile_gemm.cuh).  Each chunk stages only its gathered input
-// window and its slice of w -- which, packed (K, K, C, M), is a plain
-// row-major (K*K*C, M) matrix.  Flattening taps with channels wastes
-// no lanes on conv1's C = 3.  For a CHW output the product is computed
-// transposed (channels by pixels) so that stores stay coalesced; the
-// TPU kernel's CHW prologue and epilogue become the loader's and the
-// store's index maps.  Images ride on blockIdx.z.
-#include "tile_gemm.cuh"
+// kernel tiles the output and runs the GEMM mainloop of sgemm_sm90.cuh
+// (register-blocked, cp.async ring, cluster split-K) over the flattened
+// reduction index r = (i*K + j)*C + c, c fastest: w packed (K, K, C, M)
+// is then a plain row-major (R, M) matrix.  The gathered operand reads
+// through two tables that each block builds once: per pixel row, in the
+// copy cursors' registers, the offset of (h0, w0) = (oh*s - pad,
+// ow*s - pad) and h0, w0; per r, in shared memory, the offset of
+// (i, j, c) and (i, j).  An element is then an add and a bounds test,
+// with no division.  With HWC input the run of
+// (j, c) for one tap row is contiguous (K*C floats), and neighbouring
+// threads copy along it; with CHW input they walk pixels.  For a CHW
+// output the product is computed transposed (channels by pixels) so that
+// stores stay coalesced.  Images ride on blockIdx.z, the K splits of one
+// output tile on the cluster.  The r table covers at most TAP_CHUNK
+// entries at a time; a longer split runs the mainloop once per chunk.
+#include "sgemm_sm90.cuh"
 
 namespace {
 
-struct InputGather {
+using namespace repro::sm90;
+
+constexpr int TAP_CHUNK = 4096;  // r-table entries (32 KB)
+
+struct ConvArgs {
   const float* x;
-  int C, H, W, K, stride, pad, OW;
-  bool chw;
-  __device__ __forceinline__ float operator()(int p, int r) const {
-    const int oh = p / OW, ow = p - oh * OW;
-    const int kc = K * C;
-    const int i = r / kc;
-    const int rem = r - i * kc;
-    const int j = rem / C, c = rem - j * C;
-    const int h = oh * stride + i - pad, w = ow * stride + j - pad;
-    if (h < 0 || h >= H || w < 0 || w >= W) return 0.f;
-    return chw ? x[(int64_t(c) * H + h) * W + w]
-               : x[(int64_t(h) * W + w) * C + c];
-  }
+  const float* w;
+  const float* b;
+  float* y;
+  int C, H, W, M, K, stride, pad, OH, OW, chw_in;
+  int splits, kslice, vec_w;
 };
 
-__global__ void __launch_bounds__(repro::THREADS)
-conv_direct_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, float* __restrict__ y, int C,
-                   int H, int W, int M, int K, int stride, int pad, int OH,
-                   int OW, int chw_in, int chw_out) {
-  const int P = OH * OW, R = K * K * C;
-  const int n = blockIdx.z;
-  const InputGather gx{x + int64_t(n) * C * H * W, C, H, W, K, stride, pad,
-                       OW, chw_in != 0};
-  float* yn = y + int64_t(n) * M * P;
-  if (chw_out) {
-    // (M x R) @ (R x P): rows are channels, columns pixels
-    auto la = [=](int m, int r) { return w[int64_t(r) * M + m]; };
-    auto lb = [=](int r, int p) { return gx(p, r); };
-    auto sc = [=](int m, int p, float v) { yn[int64_t(m) * P + p] = v + b[m]; };
-    repro::tile_gemm(M, P, R, blockIdx.y * repro::BM, blockIdx.x * repro::BN,
-                     la, lb, sc, /*a_k_fast=*/false, /*b_n_fast=*/chw_in != 0);
-  } else {
-    // (P x R) @ (R x M): rows are pixels, columns channels
-    auto la = [=](int p, int r) { return gx(p, r); };
-    auto lb = [=](int r, int m) { return w[int64_t(r) * M + m]; };
-    auto sc = [=](int p, int m, float v) { yn[int64_t(p) * M + m] = v + b[m]; };
-    repro::tile_gemm(P, M, R, blockIdx.y * repro::BM, blockIdx.x * repro::BN,
-                     la, lb, sc, /*a_k_fast=*/chw_in == 0, /*b_n_fast=*/true);
+// Element (pixel p, reduction index r) of the input, nullptr in the
+// padding.  A cursor holds its pixel's (h0, w0) = (oh*s - pad, ow*s - pad)
+// and their offset, resolved once; tap[r - r0] = {offset of (i, j, c),
+// i << 16 | j} is the block's table.
+struct Gather {
+  static constexpr bool PADS = true;
+  const float* base;
+  const int2* tap;
+  int r0, C, H, W, OW, stride, pad;
+  bool chw;
+  struct Cursor {
+    int off, h0, w0;
+  };
+  __device__ __forceinline__ Cursor cursor(int p, int) const {
+    const int oh = p / OW, ow = p - oh * OW;
+    const int h0 = oh * stride - pad, w0 = ow * stride - pad;
+    return {chw ? h0 * W + w0 : (h0 * W + w0) * C, h0, w0};
   }
+  __device__ __forceinline__ const float* at(const Cursor& c, int r) const {
+    const int2 t = tap[r - r0];
+    const int h = c.h0 + (t.y >> 16), w = c.w0 + (t.y & 0xffff);
+    return (unsigned(h) < unsigned(H) && unsigned(w) < unsigned(W))
+               ? base + (c.off + t.x)
+               : nullptr;
+  }
+  __device__ __forceinline__ void advance(Cursor&, int) const {}
+};
+
+template <class Cfg, bool CHW_OUT>
+__global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
+    conv_kernel(const ConvArgs p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int2* tap = reinterpret_cast<int2*>(smem + Cfg::RING);
+  const int P = p.OH * p.OW, R = p.K * p.K * p.C;
+  const int split = blockIdx.x % p.splits;
+  const int n0 = blockIdx.x / p.splits * Cfg::BN, m0 = blockIdx.y * Cfg::BM;
+  const int rows = CHW_OUT ? p.M : P, cols = CHW_OUT ? P : p.M;
+  const bool chw_in = p.chw_in != 0;
+  Gather g{p.x + int64_t(blockIdx.z) * p.C * p.H * p.W, tap, 0, p.C, p.H,
+           p.W, p.OW, p.stride, p.pad, chw_in};
+  const Strided<float> wt{p.w, 1, p.M};  // (m, r) at w[r * M + m]
+  float acc[Cfg::TM][Cfg::TN];
+#pragma unroll
+  for (int i = 0; i < Cfg::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < Cfg::TN; ++j) acc[i][j] = 0.f;
+
+  const int kb = split * p.kslice, ke = min(R, kb + p.kslice);
+  const int kc = p.K * p.C;
+  for (int c0 = kb; c0 < ke; c0 += TAP_CHUNK) {
+    const int c1 = min(ke, c0 + TAP_CHUNK);
+    for (int r = c0 + threadIdx.x; r < c1; r += Cfg::THREADS) {
+      const int i = r / kc, rem = r - i * kc, j = rem / p.C,
+                c = rem - j * p.C;
+      tap[r - c0] = make_int2(chw_in ? (c * p.H + i) * p.W + j
+                                     : (i * p.W + j) * p.C + c,
+                              (i << 16) | j);
+    }
+    __syncthreads();
+    g.r0 = c0;
+    if constexpr (CHW_OUT)  // (M x R) @ (R x P)
+      mainloop<Cfg, float>(smem, wt, g, m0, n0, rows, cols, c0, c1, p.vec_w,
+                           1, false, !chw_in, acc);
+    else  // (P x R) @ (R x M)
+      mainloop<Cfg, float>(smem, g, wt, m0, n0, rows, cols, c0, c1, 1,
+                           p.vec_w, !chw_in, false, acc);
+  }
+
+  float* y = p.y + int64_t(blockIdx.z) * P * p.M;
+  const float* b = p.b;
+  reduce_store<Cfg>(smem, acc, m0, n0, rows, cols, true,
+                    [=](int r, int c, float v) {
+                      if constexpr (CHW_OUT)
+                        y[int64_t(r) * P + c] = v + b[r];
+                      else
+                        y[int64_t(r) * p.M + c] = v + b[c];
+                    });
+}
+
+template <class Cfg>
+constexpr int conv_smem(int taps) {
+  return Cfg::RING * 4 + taps * 8;
+}
+
+template <class Cfg, bool CHW_OUT>
+int launch_conv(const ConvArgs& p, int nimg, cudaStream_t stream) {
+  auto kernel = conv_kernel<Cfg, CHW_OUT>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           conv_smem<Cfg>(TAP_CHUNK));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int P = p.OH * p.OW;
+  const int rows = CHW_OUT ? p.M : P, cols = CHW_OUT ? P : p.M;
+  const dim3 grid((cols + Cfg::BN - 1) / Cfg::BN * p.splits,
+                  (rows + Cfg::BM - 1) / Cfg::BM, nimg);
+  return launch_clustered(
+      kernel, grid, Cfg::THREADS, p.splits,
+      conv_smem<Cfg>(p.kslice < TAP_CHUNK ? p.kslice : TAP_CHUNK), stream, p);
+}
+
+template <class Cfg>
+int conv(const ConvArgs& p, int nimg, cudaStream_t stream, int chw_out) {
+  return chw_out ? launch_conv<Cfg, true>(p, nimg, stream)
+                 : launch_conv<Cfg, false>(p, nimg, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// tile, splits, kslice, vec_w: the launch planner's choice
+// (kernels/matmul/plan.py); vec_w 4 needs M % 4 == 0 and w 16-byte
+// aligned.
 int repro_conv_direct(const void* x, const void* w, const void* b, void* y,
                       int nimg, int C, int H, int W, int M, int K,
                       int stride, int pad, int OH, int OW, int chw_in,
-                      int chw_out, void* stream) {
-  const int P = OH * OW;
-  const int rows = chw_out ? M : P, cols = chw_out ? P : M;
-  dim3 grid((cols + repro::BN - 1) / repro::BN,
-            (rows + repro::BM - 1) / repro::BM, nimg);
-  conv_direct_kernel<<<grid, repro::THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(y), C, H, W, M, K,
-      stride, pad, OH, OW, chw_in, chw_out);
-  return static_cast<int>(cudaGetLastError());
+                      int chw_out, int tile, int splits, int kslice,
+                      int vec_w, void* stream) {
+  const int P = OH * OW, R = K * K * C;
+  const ConvArgs p{static_cast<const float*>(x), static_cast<const float*>(w),
+                   static_cast<const float*>(b), static_cast<float*>(y),
+                   C, H, W, M, K, stride, pad, OH, OW, chw_in, splits,
+                   kslice, vec_w};
+  if (!plan_ok(R, chw_out ? M : P, chw_out ? P : M, nimg, tile, splits,
+               kslice) ||
+      !vec_ok(vec_w, w, 1, R > 1 ? M : 0, 0) || K >= 32768 ||
+      int64_t(C) * H * W >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tile == 0 ? conv<Tile128>(p, nimg, s, chw_out)
+                   : conv<Tile64>(p, nimg, s, chw_out);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-// Block-tiled GEMM core shared by the port's Hopper kernels:
-// matmul.cu (GEMM), winograd_gemm.cu (Winograd batched GEMM) and
-// conv_direct.cu (direct convolution as an implicit GEMM).
+// Block-tiled GEMM core of the first Hopper kernels.  It now serves only
+// winograd_gemm.cu (the Winograd batched GEMM); the GEMM (matmul.cu) and
+// the direct convolution (conv_direct.cu) run on sgemm_sm90.cuh.
 //
 // One block of 256 threads computes a 64 x 64 tile of C = A @ B with an
 // f32 accumulator in registers (4 x 4 per thread).  The contraction

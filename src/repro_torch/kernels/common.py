@@ -12,7 +12,9 @@ Each CUDA source under ``repro_torch/csrc/`` is compiled on first use by
 ``nvcc`` into its own shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds), cached under
 ``build/repro_torch/`` by a hash of the sources and flags, and loaded
-with ``ctypes``.  Every C entry returns ``cudaGetLastError()``.
+with ``ctypes``.  Every C entry returns ``cudaGetLastError()``.  The
+compiler's report (``-Xptxas -v``: registers, shared memory and spills
+per kernel) is kept beside each library (:meth:`KernelLib.ptxas_report`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -30,14 +33,15 @@ import torch
 
 __all__ = ["cdiv", "on_cpu", "require_cuda", "true_f32", "resolve_device",
            "KernelLib", "build_all", "count_launch", "launch_counts",
-           "reset_launch_counts", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
+           "reset_launch_counts", "ptxas_usage", "CSRC_DIR", "BUILD_DIR",
+           "NVCC_FLAGS"]
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 #: ``<checkout>/build/repro_torch`` — git-ignored, made at first build
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: the compute capability the ``sm_90a`` binaries run on
 _CAPABILITY = (9, 0)
 
@@ -184,7 +188,16 @@ class KernelLib:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"(exit {proc.returncode}):\n{out}")
+        self.report_path.write_text(out)
         os.replace(tmp, self.so_path)
+
+    @property
+    def report_path(self) -> pathlib.Path:
+        return self.so_path.with_suffix(".ptxas.txt")
+
+    def ptxas_report(self) -> str:
+        """What ``nvcc -Xptxas -v`` printed when the library was built."""
+        return self.report_path.read_text()
 
     def lib(self) -> ctypes.CDLL:
         with self._lock:
@@ -204,6 +217,30 @@ class KernelLib:
         if rc != 0:
             raise RuntimeError(f"{self.source.name}:{entry} failed with "
                                f"cudaError {rc}")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_usage(report: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of a ``-Xptxas -v`` report: registers,
+    static shared memory, stack frame and spill bytes (stores + loads)."""
+    usage: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in report.splitlines():
+        if (m := _PTXAS_ENTRY.search(line)):
+            cur = usage.setdefault(m.group(1), {"registers": 0, "smem": 0,
+                                                "stack": 0, "spill": 0})
+        elif cur is not None and (m := _PTXAS_SPILL.search(line)):
+            cur["stack"] = int(m.group(1))
+            cur["spill"] = int(m.group(2)) + int(m.group(3))
+        elif cur is not None and (m := _PTXAS_USED.search(line)):
+            cur["registers"] = int(m.group(1))
+            cur["smem"] = int(m.group(2) or 0)
+    return usage
 
 
 def build_all(libs: Iterable[KernelLib]) -> List[pathlib.Path]:

@@ -2,9 +2,11 @@
 
 Replaces the reference's ``conv_direct_pallas``.  The Pallas kernel keeps
 the whole padded input strip in VMEM; a Hopper block has 227 KB of shared
-memory, less than AlexNet's conv1 strip, so the CUDA kernel tiles the
-output (pixels by channels) and stages only each tile's input window,
-reading the padding as zeros instead of padding the input in memory.
+memory, less than AlexNet's conv1 strip, so the CUDA kernel is an
+implicit GEMM on the GEMM's mainloop: it tiles the output (pixels by
+channels), stages only each tile's input window, and reads the padding
+as zeros instead of padding the input in memory.  The launch (tile,
+cluster split-K, copy widths) comes from the GEMM's planner.
 """
 from __future__ import annotations
 
@@ -13,10 +15,11 @@ import ctypes
 import torch
 
 from ..common import KernelLib, ptr, require_cuda, stream_ptr
+from ..matmul.plan import GemmPlan, plan_gemm, vector_width
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 LIB = KernelLib("conv_direct.cu",
-                {"repro_conv_direct": (_P, _P, _P, _P) + (_I,) * 12 + (_P,)})
+                {"repro_conv_direct": (_P, _P, _P, _P) + (_I,) * 16 + (_P,)})
 _MAX_GRID_Z = 65535
 
 
@@ -52,7 +55,22 @@ def conv_direct_cuda(x, w, b, *, stride: int = 1, pad: int = 0,
     chw_out = out_layout == "CHW"
     y = torch.empty((n, m, oh, ow) if chw_out else (n, oh, ow, m),
                     dtype=x.dtype, device=x.device)
+    plan = conv_plan(n, c, m, k, oh, ow, chw_out,
+                     vector_width(w.view(-1, m), 1))
     LIB.call("repro_conv_direct", ptr(x), ptr(w), ptr(b), ptr(y), n, c, h,
              wd, m, k, stride, pad, oh, ow, int(chw_in), int(chw_out),
-             stream_ptr(x.device))
+             plan.tile, plan.splits, plan.kslice,
+             plan.vec_a if chw_out else plan.vec_b, stream_ptr(x.device))
     return y
+
+
+def conv_plan(n: int, c: int, m: int, k: int, oh: int, ow: int,
+              chw_out: bool, vec_w: int = 1) -> GemmPlan:
+    """The launch of the implicit GEMM: (OH*OW x K*K*C) @ (K*K*C x M) per
+    image, or its transpose (M x K*K*C) @ (K*K*C x OH*OW) for a CHW
+    output; ``vec_w`` is the weights' copy width (the gathered input's
+    is 1)."""
+    p, r = oh * ow, k * k * c
+    if chw_out:
+        return plan_gemm(m, p, r, n, vec_a=vec_w)
+    return plan_gemm(p, m, r, n, vec_b=vec_w)

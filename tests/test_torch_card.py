@@ -13,7 +13,8 @@ be exact; flash attention in f32 within 1e-5 of the largest plain
 magnitude (other summation orders over D and Lk terms, a few ulps).
 The whole convolutions (the code around the kernels: padding, patch
 gathers, Winograd transforms, crops) are held to the same 1e-3 against
-an f64 ``F.conv2d``.
+an f64 ``F.conv2d``.  The GEMM and the direct conv sum their cluster's
+K splits in a fixed order, so a call repeated gives the same bits.
 """
 import numpy as np
 import pytest
@@ -21,13 +22,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import common
-from repro_torch.kernels.conv_direct import conv_direct, conv_direct_ref
+from repro_torch.kernels.conv_direct import (conv_direct, conv_direct_ref,
+                                             conv_plan)
 from repro_torch.kernels.conv_im2col import conv_im2col
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.layout_transform import ops as lt_ops
 from repro_torch.kernels.layout_transform import ref as lt_ref
-from repro_torch.kernels.matmul import matmul, matmul_ref
+from repro_torch.kernels.matmul import (matmul, matmul_plan, matmul_ref,
+                                       plan_gemm)
+from repro_torch.kernels.matmul import kernel as mm_kernel
 from repro_torch.kernels.winograd_gemm import (bgemm_ref, conv_winograd,
                                                prepare_kernel, winograd_bgemm)
 
@@ -157,3 +161,124 @@ class TestOnCard:
         self._close(got, want, 1e-5 if dtype == torch.float32 else 2e-2)
         if lk == 16:  # window 8 over keys 0..15: rows 23 and up see none
             assert bool((got[:, :, 23:] == 0).all())
+
+
+# (what, M, K, N, batch of x, batch of y, lhs, out, bias + ReLU, dtype)
+SPLIT_K_CASES = [
+    ("K < BK", 70, 9, 33, 1, 1, "mk", "mn", False, torch.float32),
+    ("K = 1", 64, 1, 129, 1, 1, "mk", "mn", True, torch.float32),
+    ("K not a multiple of S*BK", 70, 1000, 33, 1, 1, "mk", "mn", True,
+     torch.float32),
+    ("odd N", 33, 777, 129, 1, 1, "mk", "nm", False, torch.float32),
+    ("x broadcast over the batch", 96, 600, 45, 1, 3, "km", "mn", True,
+     torch.float32),
+    ("y broadcast over the batch", 40, 520, 77, 4, 1, "mk", "nm", True,
+     torch.float32),
+    ("km / nm", 129, 1500, 31, 1, 1, "km", "nm", True, torch.float32),
+    ("bf16", 70, 1000, 45, 2, 2, "mk", "mn", True, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+class TestSplitK:
+    """The cluster split-K GEMM and the implicit-GEMM conv on the card."""
+
+    def _close(self, got, want, tol):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max())
+
+    @pytest.mark.parametrize(
+        "what,m,k,n,bx,by,lhs,out,relu,dtype", SPLIT_K_CASES,
+        ids=[c[0] for c in SPLIT_K_CASES])
+    def test_matmul_split_k(self, cuda, what, m, k, n, bx, by, lhs, out,
+                            relu, dtype):
+        xs = (bx, k, m) if lhs == "km" else (bx, m, k)
+        x, y, b = (torch.from_numpy(a).to(cuda, dtype) for a in
+                   _data(9, xs, (by, k, n), (n,)))
+        if bx == 1:
+            x = x[0]
+        elif by == 1:
+            y = y.expand(bx, k, n)  # batch stride 0
+        kw = dict(fuse_relu=relu, lhs_layout=lhs, out_layout=out)
+        bias = b if relu else None
+        if k >= 256:
+            assert matmul_plan(x, y, lhs_layout=lhs).splits > 1
+        got = matmul(x, y, bias, **kw)
+        self._close(got, matmul_ref(x, y, bias, **kw),
+                    1e-3 if dtype == torch.float32 else 2e-2)
+        assert torch.equal(got, matmul(x, y, bias, **kw))
+
+    def test_relu_after_the_whole_sum(self, cuda):
+        """Column 0 is -1 over the first split's K slice and +1 after it,
+        column 1 the reverse: ReLU of the whole sum gives (k - 2 s, 0),
+        ReLU per split would give (k - s, s)."""
+        k = 1024
+        x = torch.ones((8, k), device=cuda)
+        y = torch.ones((k, 2), device=cuda)
+        plan = matmul_plan(x, y)
+        assert plan.splits > 1
+        y[:plan.kslice, 0] = -1.0
+        y[plan.kslice:, 1] = -1.0
+        got = matmul(x, y, torch.zeros(2, device=cuda), fuse_relu=True)
+        want = torch.tensor([[k - 2.0 * plan.kslice, 0.0]], device=cuda)
+        assert torch.equal(got, want.expand(8, 2))
+
+    @pytest.mark.parametrize("tile", [0, 1])
+    @pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+    def test_every_plan(self, cuda, tile, splits):
+        """Any tile and split count the C entry takes gives the product."""
+        m, k, n = 150, 1100, 77
+        x, y, b = (torch.from_numpy(a).to(cuda) for a in
+                   _data(10, (1, m, k), (1, k, n), (n,)))
+        kslice = -(-k // splits // 16) * 16
+        plan = mm_kernel.GemmPlan(tile, splits, kslice, 1, 1, (0, 0, 0))
+        c = torch.empty((1, m, n), device=cuda)
+        mm_kernel.launch(plan, x, y, b, c, True)
+        self._close(c, matmul_ref(x, y, b, fuse_relu=True), 1e-3)
+
+    def test_bad_plan_is_refused(self, cuda):
+        x, y = (torch.from_numpy(a).to(cuda) for a in
+                _data(11, (1, 8, 64), (1, 64, 8)))
+        c = torch.empty((1, 8, 8), device=cuda)
+        for plan in (mm_kernel.GemmPlan(1, 9, 16, 1, 1, (0, 0, 0)),
+                     mm_kernel.GemmPlan(1, 2, 16, 1, 1, (0, 0, 0)),
+                     mm_kernel.GemmPlan(2, 1, 64, 1, 1, (0, 0, 0))):
+            with pytest.raises(RuntimeError, match="cudaError"):
+                mm_kernel.launch(plan, x, y, None, c, False)
+
+    def test_matmul_is_deterministic(self, cuda):
+        """AlexNet conv4's im2col GEMM at batch 1, K split over a
+        cluster."""
+        w, p = (torch.from_numpy(a).to(cuda) for a in
+                _data(12, (384, 3456), (1, 3456, 169)))
+        assert plan_gemm(384, 169, 3456).splits > 1
+        first = matmul(w, p)
+        for _ in range(3):
+            assert torch.equal(matmul(w, p), first)
+
+    @pytest.mark.parametrize("li", ["CHW", "HWC"])
+    @pytest.mark.parametrize("lo", ["CHW", "HWC"])
+    def test_conv_direct_alexnet_conv2(self, cuda, li, lo):
+        """AlexNet's conv2: 96 -> 256 channels, 5 x 5, pad 2, 27 x 27."""
+        x, w, b = (torch.from_numpy(a).to(cuda) for a in
+                   _data(13, (1, 96, 27, 27), (5, 5, 96, 256), (256,),
+                         scale=0.05))
+        if li == "HWC":
+            x = x.permute(0, 2, 3, 1).contiguous()
+        kw = dict(stride=1, pad=2, in_layout=li, out_layout=lo)
+        common.reset_launch_counts()
+        got = conv_direct(x, w, b, **kw)
+        assert common.launch_counts() == {"conv_direct": 1}
+        self._close(got, conv_direct_ref(x, w, b, **kw), 1e-3)
+        assert torch.equal(got, conv_direct(x, w, b, **kw))
+
+    def test_conv_direct_long_reduction(self, cuda):
+        """K*K*C = 36864: every split is longer than the 4096-entry tap
+        table, so the mainloop runs once per table chunk."""
+        x, w, b = (torch.from_numpy(a).to(cuda) for a in
+                   _data(14, (1, 10, 10, 4096), (3, 3, 4096, 8), (8,),
+                         scale=0.05))
+        assert conv_plan(1, 4096, 8, 3, 10, 10, False).kslice > 4096
+        kw = dict(stride=1, pad=1)
+        self._close(conv_direct(x, w, b, **kw),
+                    conv_direct_ref(x, w, b, **kw), 1e-3)

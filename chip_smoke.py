@@ -15,11 +15,13 @@ checkout of the repository.  Phases, each of which raises on failure:
 2. kernels: each hand-written kernel's binding against its plain PyTorch
    version on the card at AlexNet's (and GoogLeNet's 1x1) shapes, at
    batch 1 and 8, with its time, the plain version's, one library
-   call's and the card's lower bound, and for the GEMM and the direct
-   conv the launch planner's choice (tile, K splits, blocks) and a
-   second call that must give the same bits; the layout transforms (K5, bit
-   for bit) and flash attention (K6, every masking and layout option)
-   at the calibration sweep's shapes; then every kernel primitive's
+   call's and the card's lower bound, and for the GEMM, the Winograd
+   GEMM (its batch folded into N) and the direct conv the launch
+   planner's choice (tile, K splits, blocks) and a second call that must
+   give the same bits; the layout transforms (K5, bit for bit, in 1- to
+   8-byte elements, short channel axes included) and flash attention
+   (K6, every masking and layout option) at the calibration sweep's
+   shapes; then every kernel primitive's
    whole convolution (padding, gathers, transforms, crops and each
    fused layout) at batch 8 against an f64 ``F.conv2d``;
 3. main path: AlexNet at 227x227 through ``select_pbqp`` under the H100
@@ -79,9 +81,11 @@ TOL_BF16 = 2e-2
 #: The layout transforms copy bits: they must be exact.
 TOL_ATTN = 1e-5
 #: the calibration sweep's layout-transform shapes (AlexNet's buckets),
-#: plus a ragged one
+#: a ragged one, and short channel axes (C = 1 .. 8, the kernel's
+#: short-axis routes) over ragged H*W
 LAYOUT_SHAPES = [(4, 256, 256), (128, 32, 32), (256, 16, 16), (512, 16, 16),
-                 (96, 27, 27)]
+                 (96, 27, 27), (1, 13, 17), (2, 27, 27), (3, 227, 227),
+                 (4, 27, 31), (5, 7, 9), (8, 13, 13)]
 #: phase 7's calibration CLI arguments; the measurement discipline is
 #: the CLI's default (``--reps 3 --min-time 5e-3``)
 CALIB_NET, CALIB_SCALE, CALIB_BATCHES = "alexnet", 1.0, (1, 8)
@@ -181,6 +185,7 @@ class KernelReport:
         self.err = self.rel_err = 0.0
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.ops_s = self.bytes_s = self.bound_s = 0.0
+        self.batch8 = None  # K3: a second report, its times at batch 8
 
     def same_bits(self, fn, what):
         """Two calls give the same bits: the split-K sum has a fixed
@@ -230,7 +235,8 @@ class KernelReport:
         it (the PBQP main path where it picks the kernel, else the pinned
         plan at batch 1 that puts it there); for the kernels that no plan
         runs (K5, K6), the sum over the calibration path's kernel items,
-        one call each.  Every path's own count is listed beside."""
+        one call each.  Every path's own count is listed beside, and
+        K3's times at batch 8 (``batch8``)."""
         by_path = {p: c[self.name] for p, c in paths.items()
                    if c.get(self.name)}
         first = next((p for p in by_path if p.endswith("_b1")), None)
@@ -240,20 +246,26 @@ class KernelReport:
             first = "calibrate_kernel_items"
             launches = sum(n for p, n in by_path.items()
                            if p.startswith("calibrate_"))
-        return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": self.replaces, "launches": launches,
-                "launches_path": first, "launches_by_path": by_path,
-                "max_abs_err": self.err, "max_rel_err": self.rel_err,
-                "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound_s * 1e3,
-                "bound_by": ("operations" if self.ops_s >= self.bytes_s
-                             else "bytes"),
-                "library_ms": self.library_ms}
+        entry = {"name": self.name, "route": "cuda", "source": self.source,
+                 "replaces": self.replaces, "launches": launches,
+                 "launches_path": first, "launches_by_path": by_path,
+                 "max_abs_err": self.err, "max_rel_err": self.rel_err,
+                 "ms": self.ms,
+                 "plain_ms": self.plain_ms, "bound_ms": self.bound_s * 1e3,
+                 "bound_by": ("operations" if self.ops_s >= self.bytes_s
+                              else "bytes"),
+                 "library_ms": self.library_ms}
+        if self.batch8 is not None:
+            b8 = self.batch8
+            entry["batch8"] = {"ms": b8.ms, "plain_ms": b8.plain_ms,
+                               "library_ms": b8.library_ms,
+                               "bound_ms": b8.bound_s * 1e3}
+        return entry
 
 
 #: the sources on the GEMM mainloop (``csrc/sgemm_sm90.cuh``), whose
 #: kernels must spill nothing
-MAINLOOP_SOURCES = ("matmul.cu", "conv_direct.cu")
+MAINLOOP_SOURCES = ("matmul.cu", "conv_direct.cu", "winograd_gemm.cu")
 
 
 def demangle(names):
@@ -299,6 +311,7 @@ def kernel_phase(torch, F):
     from repro_torch.kernels.matmul.plan import vector_width
     from repro_torch.kernels.winograd_gemm import bgemm_ref, \
         winograd_bgemm_cuda
+    from repro_torch.kernels.winograd_gemm.kernel import bgemm_plan
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -375,22 +388,39 @@ def kernel_phase(torch, F):
                 lambda: torch.matmul(w, x), 2.0 * m * n * c,
                 4.0 * (m * c + c * n + m * n), matmul_plan(w, x))
 
-    # K3: conv3..conv5 at F(2,3) and F(4,3)
+    # K3: conv3..conv5 at F(2,3) and F(4,3), the reference's (P, M, C) @
+    # (P, C, N) with U packed as prepare_kernel packs it (M contiguous)
+    # and the images folded into N = images * T, as conv_winograd calls
+    # it; batch 8 timed apart; plus a ragged shape (M, C, N odd)
+    k3b8 = KernelReport("winograd_gemm", k3.source, k3.replaces)
     for nid in ("conv3", "conv4", "conv5"):
         s = convs[nid]
         for m_ in (2, 4):
             a = m_ + 2
             t = (-(-s.out_h // m_)) * (-(-s.out_w // m_))
-            u, v = rand(a * a, s.m, s.c, scale=0.05), rand(1, a * a, s.c, t)
-            v8 = rand(8, a * a, s.c, t)
-            for vv, nb in ((v, 1), (v8, 8)):
-                k3.compare(winograd_bgemm_cuda(u, vv), bgemm_ref(u, vv),
-                           TOL_F32, f"{nid} F({m_},3) batch {nb}")
-            k3.time(torch, f"{nid} F({m_},3) P={a * a} T={t}",
-                    lambda: winograd_bgemm_cuda(u, v),
-                    lambda: bgemm_ref(u, v), lambda: torch.matmul(u, v),
-                    2.0 * a * a * s.m * s.c * t,
-                    4.0 * a * a * (s.m * s.c + s.c * t + s.m * t))
+            u = rand(a * a, s.c, s.m, scale=0.05).transpose(1, 2)
+            for nb, rpt in ((1, k3), (8, k3b8)):
+                v = rand(a * a, s.c, nb * t)
+                what = f"{nid} F({m_},3) batch {nb}"
+                k3.compare(winograd_bgemm_cuda(u, v), bgemm_ref(u, v),
+                           TOL_F32, what)
+                k3.same_bits(lambda: winograd_bgemm_cuda(u, v), what)
+                n = nb * t
+                rpt.time(torch, f"{what} P={a * a} N={n}",
+                         lambda: winograd_bgemm_cuda(u, v),
+                         lambda: bgemm_ref(u, v),
+                         lambda: torch.matmul(u, v),
+                         2.0 * a * a * s.m * s.c * n,
+                         4.0 * a * a * (s.m * s.c + s.c * n + s.m * n),
+                         bgemm_plan(u, v))
+    u, v = rand(16, 77, 45, scale=0.05), rand(16, 45, 51)
+    k3.compare(winograd_bgemm_cuda(u, v), bgemm_ref(u, v), TOL_F32,
+               "ragged 77x45 @ 45x51")
+    k3.same_bits(lambda: winograd_bgemm_cuda(u, v), "ragged 77x45 @ 45x51")
+    print(f"  {k3.name:14s} batch 8 total: kernel {k3b8.ms:.5f} ms  plain "
+          f"{k3b8.plain_ms:.5f} ms  library {k3b8.library_ms:.5f} ms  "
+          f"bound {k3b8.bound_s * 1e3:.5f} ms")
+    k3.batch8 = k3b8
 
     # K4: conv1 and conv2, CHW and HWC in and out
     for nid in ("conv1", "conv2"):
@@ -427,9 +457,10 @@ def kernel_phase(torch, F):
 
 
 def layout_phase(torch, dev):
-    """K5: the four layout-transform entries (one CUDA transpose) against
-    their plain versions, bit for bit, at the sweep's shapes and a ragged
-    one, single and batched, one launch per call.  Timed at the sweep's
+    """K5: the four layout-transform entries (one CUDA transpose, with a
+    route for a short axis) against their plain versions, bit for bit, at
+    the sweep's shapes, a ragged one and short channel axes, single and
+    batched, in 1-, 2-, 4- and 8-byte elements, one launch per call.  Timed at the sweep's
     shapes: CHW -> HWC at conv1's bucket (C % 8 != 0), CHW -> HWC8 at the
     others, and each reverse entry at the same shapes."""
     from repro_torch.kernels.common import launch_counts, reset_launch_counts
@@ -458,7 +489,9 @@ def layout_phase(torch, dev):
             rpt = reports[e]
             for xx, what in ((xin, "single"),
                              (torch.stack([xin, -xin]), "batch 2"),
-                             (xin.to(torch.bfloat16), "bf16")):
+                             (xin.to(torch.bfloat16), "bf16"),
+                             ((xin * 40).to(torch.int8), "int8"),
+                             (xin.double(), "f64")):
                 reset_launch_counts()
                 got = getattr(lo, e)(xx)
                 counts = launch_counts()
@@ -475,7 +508,8 @@ def layout_phase(torch, dev):
                          lambda: lib(xin).contiguous(), 0.0, 2.0 * 4 * n)
     sync(torch, dev)
     print("  layout transforms: all four entries bit-exact at "
-          f"{LAYOUT_SHAPES}, single, batch 2 and bf16, one launch each")
+          f"{LAYOUT_SHAPES}, single, batch 2, bf16, int8 and f64, one "
+          "launch each")
     return list(reports.values())
 
 

@@ -159,7 +159,7 @@ int conv(const ConvArgs& p, int nimg, cudaStream_t stream, int chw_out) {
 
 extern "C" {
 
-// tile, splits, kslice, vec_w: the launch planner's choice
+// tile (0 or 1), splits, kslice, vec_w: the launch planner's choice
 // (kernels/matmul/plan.py); vec_w 4 needs M % 4 == 0 and w 16-byte
 // aligned.
 int repro_conv_direct(const void* x, const void* w, const void* b, void* y,
@@ -172,7 +172,8 @@ int repro_conv_direct(const void* x, const void* w, const void* b, void* y,
                    static_cast<const float*>(b), static_cast<float*>(y),
                    C, H, W, M, K, stride, pad, OH, OW, chw_in, splits,
                    kslice, vec_w};
-  if (!plan_ok(R, chw_out ? M : P, chw_out ? P : M, nimg, tile, splits,
+  if (tile > 1 ||  // built for the 128 x 128 and 64 x 64 tiles only
+      !plan_ok(R, chw_out ? M : P, chw_out ? P : M, nimg, tile, splits,
                kslice) ||
       !vec_ok(vec_w, w, 1, R > 1 ? M : 0, 0) || K >= 32768 ||
       int64_t(C) * H * W >= (int64_t(1) << 31))

@@ -13,9 +13,9 @@
 // = 20: it is bound by operations.  GoogLeNet's 1x1 GEMMs (K 64..192)
 // sit near the ridge.
 //
-// Design: the mainloop of sgemm_sm90.cuh -- 128 x 128 or 64 x 64 tiles
-// of 8 x 8 or 4 x 4 accumulators per thread, a 4-stage cp.async ring,
-// and split-K across a cluster of up to 8 blocks reduced through
+// Design: the mainloop of sgemm_sm90.cuh -- 128 x 128, 64 x 64, 128 x 32
+// or 128 x 16 tiles of register-blocked accumulators, a 4-stage cp.async
+// ring, and split-K across a cluster of up to 8 blocks reduced through
 // distributed shared memory, so that batch-1 GEMMs with few output tiles
 // and long K (AlexNet's conv3..conv5: 12 to 18 tiles of 64 x 64, K 2304
 // and 3456) still fill the 132 SMs.  The launch planner

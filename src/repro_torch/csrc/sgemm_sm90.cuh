@@ -1,19 +1,22 @@
 // Pipelined, register-blocked f32 GEMM mainloop for Hopper (sm_90a), with
 // split-K across a thread-block cluster.  Serves matmul.cu (the GEMM
-// behind K1 and K2) and conv_direct.cu (K4, an implicit GEMM).
+// behind K1 and K2), winograd_gemm.cu (K3, the batched GEMM over the
+// Winograd transform points) and conv_direct.cu (K4, an implicit GEMM).
 //
 // C = A @ B accumulates in true f32 on the CUDA cores (no TF32, no wgmma),
 // so the bound is max(flops / 67e12, bytes / 3.35e12).  The design:
 //
-// * Register blocking.  256 threads compute a BM x BN tile: 128 x 128
-//   with 8 x 8 accumulators per thread and K steps of 16, or 64 x 64
-//   with 4 x 4 and K steps of 32 (fewer barriers for its shorter FMA
-//   runs).  Both operands are staged K-major in shared memory, s[k][row]
-//   with a pitch of rows + 4 floats, so each thread reads its A and B
-//   fragments as float4s; a warp of 4 x 8 threads reads 4 distinct A
-//   float4s and 8 distinct B float4s, free of bank conflicts.  An
-//   operand whose K axis is the contiguous one is transposed on its way
-//   in.
+// * Register blocking.  Each thread holds TM x TN accumulators of a
+//   BM x BN tile: 128 x 128 with 8 x 8 on 256 threads and K steps of 16,
+//   64 x 64 with 4 x 4 on 256 threads and K steps of 32 (fewer barriers
+//   for its shorter FMA runs), 128 x 32 with 8 x 4 on 128 threads and K
+//   steps of 16, or 128 x 16 with 4 x 4 on 128 threads and K steps of 32
+//   (the last two for a short N).  Both operands are staged K-major in
+//   shared memory, s[k][row] with a pitch of rows + 4 floats, so each
+//   thread reads its A and B fragments as float4s; a warp of 4 x 8
+//   (8 x 4) threads reads 4 (8) distinct A float4s and 8 (4) distinct B
+//   float4s, free of bank conflicts.  An operand whose K axis is the
+//   contiguous one is transposed on its way in.
 // * A ring of STAGES slices filled by cp.async, STAGES - 1 ahead of the
 //   FMAs, so global latency hides behind the previous slices' math.
 //   Ragged edges and padding are zero-filled by the copy (src-size 0).
@@ -60,7 +63,10 @@ struct Tile {
   static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
   static constexpr int RY = BM / TM, RX = BN / TN;  // threads along M, N
   static constexpr int THREADS = RY * RX;           // one block of acc each
-  static_assert(RY % 4 == 0 && RX % 8 == 0, "warps of 4 x 8 threads");
+  // a warp covers WY x WX threads: 4 x 8, or 8 x 4 where RX is 4
+  static constexpr int WX = RX < 8 ? RX : 8, WY = 32 / WX;
+  static_assert(WX * WY == 32 && RY % WY == 0 && RX % WX == 0,
+                "whole warps of 4 x 8 or 8 x 4 threads");
   static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 fragments");
   static constexpr int PA = BM + 4, PB = BN + 4;  // staged pitches
   static constexpr int STAGE = BK * (PA + PB);    // floats per stage
@@ -68,9 +74,16 @@ struct Tile {
   static_assert(BM * (BN + 4) <= RING && BN * (BM + 4) <= RING,
                 "the staged output tile fits the ring");
 };
-// The C entries' `tile` argument: 0 and 1 (kernels/matmul/plan.py TILES).
+// The C entries' `tile` argument: 0 to 3 (kernels/matmul/plan.py
+// TILES).  The narrow ones, 128 x 32 and 128 x 16 on 128 threads, serve
+// products with a short N (the Winograd GEMM's 16 tiles of an image at
+// F(4,3)), which a 64-wide tile would leave 3/4 idle; several of their
+// blocks share an SM.
 using Tile128 = Tile<128, 128, 16, 8, 8, 1>;
 using Tile64 = Tile<64, 64, 32, 4, 4, 2>;
+using Tile128x32 = Tile<128, 32, 16, 8, 4, 3>;
+using Tile128x16 = Tile<128, 16, 32, 4, 4, 2>;
+constexpr int NUM_TILES = 4;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -152,6 +165,8 @@ struct SliceCopier {
   static constexpr int P = ROWS + 4;
   static constexpr int N = ROWS * BK / THREADS;       // 4-byte copies
   static constexpr int NV = ROWS / 4 * BK / THREADS;  // 16-byte copies
+  static_assert(N * THREADS == ROWS * BK && NV * THREADS == ROWS / 4 * BK,
+                "every thread copies as many elements of a slice");
   typename Op::Cursor cur[N];
   int rows[N];  // rows of the element inside the operand: 0..1 or 0..4
   int kk0, kstep, dst0, dstep;
@@ -217,15 +232,18 @@ struct SliceCopier {
 
 // Thread (ty, tx) owns rows (i / 4) * RY * 4 + ty * 4 + i % 4 and
 // columns (j / 4) * RX * 4 + tx * 4 + j % 4 of the tile.  A warp covers
-// 4 x 8 of the RY x RX threads, so that each of its fragment reads
-// touches 4 (A) or 8 (B) distinct float4s: one 128-byte wavefront.
+// WY x WX (4 x 8 or 8 x 4) of the RY x RX threads, so that each of its
+// fragment reads touches at most 8 distinct float4s: one 128-byte
+// wavefront.
 template <class Cfg>
 __device__ __forceinline__ int thread_y() {
-  return threadIdx.x / 32 / (Cfg::RX / 8) * 4 + threadIdx.x % 32 / 8;
+  return threadIdx.x / 32 / (Cfg::RX / Cfg::WX) * Cfg::WY +
+         threadIdx.x % 32 / Cfg::WX;
 }
 template <class Cfg>
 __device__ __forceinline__ int thread_x() {
-  return threadIdx.x / 32 % (Cfg::RX / 8) * 8 + threadIdx.x % 8;
+  return threadIdx.x / 32 % (Cfg::RX / Cfg::WX) * Cfg::WX +
+         threadIdx.x % Cfg::WX;
 }
 template <class Cfg>
 __device__ __forceinline__ int acc_row(int i, int ty) {
@@ -460,15 +478,19 @@ int launch_clustered(Kernel kernel, dim3 grid, int threads, int splits,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  // read (and clear) the last error either way: a refused launch must not
+  // be reported again by the next one
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // The planner's choice, checked: a plan that the kernel cannot run is
 // refused (cudaErrorInvalidValue), never patched up here.
 inline bool plan_ok(int K, int rows, int cols, int nb, int tile, int splits,
                     int kslice) {
-  const int bm = tile == 0 ? Tile128::BM : Tile64::BM;
-  return (tile == 0 || tile == 1) && splits >= 1 && splits <= MAX_SPLITS &&
+  const int bm = tile == 1 ? Tile64::BM : Tile128::BM;  // the others: 128
+  return tile >= 0 && tile < NUM_TILES && splits >= 1 &&
+         splits <= MAX_SPLITS &&
          kslice >= 1 && int64_t(kslice) * splits >= K &&
          (rows + bm - 1) / bm <= 65535 && nb >= 1 && nb <= 65535 && cols >= 0;
 }
@@ -482,8 +504,13 @@ inline bool vec_ok(int vec, const void* base, int64_t fast, int64_t s1,
          reinterpret_cast<uintptr_t>(base) % 16 == 0;
 }
 
+// static: internal linkage, so that each kernel library that includes
+// this header keeps its own `attr`.  (The function-local static of an
+// inline function with external linkage is one object for the whole
+// process, whichever library defines it: the first library to set its
+// kernel's shared-memory limit would leave the others' unset.)
 template <class Cfg, typename T>
-int launch_gemm(const GemmArgs<T>& p, int nb, cudaStream_t stream) {
+static int launch_gemm(const GemmArgs<T>& p, int nb, cudaStream_t stream) {
   auto kernel = gemm_kernel<Cfg, T>;
   constexpr int smem = Cfg::RING * 4;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -503,8 +530,12 @@ int gemm(const GemmArgs<T>& p, int nb, int tile, cudaStream_t stream) {
       !vec_ok(p.vec_a, p.a, p.sam, p.K > 1 ? p.sak : 0, nb > 1 ? p.sab : 0) ||
       !vec_ok(p.vec_b, p.b, p.sbn, p.K > 1 ? p.sbk : 0, nb > 1 ? p.sbb : 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  return tile == 0 ? launch_gemm<Tile128, T>(p, nb, stream)
-                   : launch_gemm<Tile64, T>(p, nb, stream);
+  switch (tile) {
+    case 0: return launch_gemm<Tile128, T>(p, nb, stream);
+    case 1: return launch_gemm<Tile64, T>(p, nb, stream);
+    case 2: return launch_gemm<Tile128x32, T>(p, nb, stream);
+    default: return launch_gemm<Tile128x16, T>(p, nb, stream);
+  }
 }
 
 }  // namespace sm90

@@ -1,37 +1,51 @@
-// Batched GEMM over the Winograd transform points:
-//   Q[n, p] = U[p] @ V[n, p]    U (P, M, C), V (N, P, C, T), Q (N, P, M, T)
-// with P = alpha^2 (16 for F(2,3), 36 for F(4,3)), T the tiles of one
-// image and N the images of a batch; f32 in, f32 accumulation.
+// Batched GEMM over the Winograd transform points, f32 in, f32
+// accumulation:
+//   Q[p] = U[p] @ V[p]    U (P, M, C), V (P, C, N), Q (P, M, N)
+// with P = alpha^2 (16 for F(2,3), 36 for F(4,3)) and N the tiles of
+// every image of the batch side by side (N = images * T).
 //
 // Replaces: src/repro/kernels/winograd_gemm/kernel.py
 // winograd_bgemm_pallas (body _bgemm_kernel).
 //
-// Bound on the H100: at AlexNet's conv3..conv5 (M 256..384, C 256..384,
-// T = 49 tiles per image at F(2,3), 16 at F(4,3)) each point's product
-// does 2*M*C*T operations on 4*(M*C + C*T + M*T) bytes, 7 to 19
-// operations per byte at batch 1, below the f32 CUDA-core ridge of
-// 67e12 / 3.35e12 = 20: bound by the bytes of the packed weights U.
-// A batch of images reuses U and moves the kernel toward operations.
+// Bound on the H100: at AlexNet's conv3..conv5 (M 256..384, C 256..384)
+// one image has T = 49 tiles at F(2,3) and 16 at F(4,3).  At batch 1 each
+// point's product does 2*M*C*T operations on 4*(M*C + C*T + M*T) bytes,
+// 7 to 20 operations per byte, at or below the f32 CUDA-core ridge of
+// 67e12 / 3.35e12 = 20: bound by the bytes of the packed weights U
+// (6.3 to 21 MB a layer).  At batch 8, N = 392 or 128 and U is read once
+// for all eight images: 35 to 64 operations per byte, bound by
+// operations.
 //
-// Design: the same 64 x 64 tiled core as the GEMM (tile_gemm.cuh), the
-// contraction over C looping inside the block.  blockIdx.z walks
-// (image, point) pairs; U's image stride is 0, so every image shares
-// the packed weights.  C and T are masked at the ragged edges instead of
-// padded to block multiples as the reference does.
-#include "tile_gemm.cuh"
+// Design: the pipelined mainloop of sgemm_sm90.cuh, with the points on
+// blockIdx.z and the launch planner's tile, cluster split-K and copy
+// widths (kernels/matmul/plan.py).  The images of a batch are folded
+// into N by the input transform, which writes V as (P, C, images * T):
+// every output tile sees whole columns of the batch, and U is read once
+// per point, not once per image.  At batch 1 the narrow 128 x 32 tile
+// keeps F(4,3)'s 16 columns from idling 3/4 of a 64-wide tile, and split-K
+// fills the card where M / BM * P blocks would not.  U is packed with M
+// contiguous ((P, C, M) in memory), so its copies are 16 bytes; V's are 16
+// bytes where N is a multiple of 4.  The split-K sum runs in rank order:
+// the same bits on every call.
+#include "sgemm_sm90.cuh"
 
 extern "C" {
 
+// sam, sak, sab: U's strides (m, c, p); sbk, sbn, sbb: V's (c, n, p); Q is
+// contiguous (P, M, N).  tile, splits, kslice, vec_a, vec_b: the launch
+// planner's choice (kernels/matmul/plan.py), refused with
+// cudaErrorInvalidValue where the kernel cannot run it.
 int repro_wino_bgemm(const void* u, const void* v, void* q, int P, int M,
-                     int C, int T, int nimg, void* stream) {
-  const int64_t mc = int64_t(M) * C, ct = int64_t(C) * T,
-                mt = int64_t(M) * T;
-  return repro::launch_strided_gemm<float>(
+                     int N, int C, int64_t sam, int64_t sak, int64_t sab,
+                     int64_t sbk, int64_t sbn, int64_t sbb, int tile,
+                     int splits, int kslice, int vec_a, int vec_b,
+                     void* stream) {
+  const repro::sm90::GemmArgs<float> p{
       static_cast<const float*>(u), static_cast<const float*>(v), nullptr,
-      static_cast<float*>(q), M, T, C, /*sam=*/C, /*sak=*/1, /*sbk=*/T,
-      /*sbn=*/1, /*scm=*/T, /*scn=*/1, /*nb1=*/nimg, /*nb2=*/P,
-      /*sa1=*/0, /*sa2=*/mc, /*sb1=*/P * ct, /*sb2=*/ct, /*sc1=*/P * mt,
-      /*sc2=*/mt, /*relu=*/0, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(q), M, N, C, sam, sak, sbk, sbn,
+      /*scm=*/N, /*scn=*/1, sab, sbb, /*scb=*/int64_t(M) * N, /*relu=*/0,
+      splits, kslice, vec_a, vec_b};
+  return repro::sm90::gemm(p, P, tile, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -21,13 +21,19 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 LIB = KernelLib("conv_direct.cu",
                 {"repro_conv_direct": (_P, _P, _P, _P) + (_I,) * 16 + (_P,)})
 _MAX_GRID_Z = 65535
+#: the tiles the kernel is built for: 128 x 128 and 64 x 64 (the narrow
+#: ones spend too long gathering their 128-row operand; the planner's
+#: sweep put conv2 at 87 us on 128 x 32 against 50 us on 128 x 128)
+CONV_TILES = (0, 1)
 
 
 def conv_direct_cuda(x, w, b, *, stride: int = 1, pad: int = 0,
-                     in_layout: str = "HWC", out_layout: str = "HWC"):
+                     in_layout: str = "HWC", out_layout: str = "HWC",
+                     plan: GemmPlan = None):
     """x: (N, H, W, C), or (N, C, H, W) with ``in_layout="CHW"``;
     w: (K, K, C, M); b: (M,); contiguous f32.  Returns (N, OH, OW, M), or
-    (N, M, OH, OW) with ``out_layout="CHW"``."""
+    (N, M, OH, OW) with ``out_layout="CHW"``.  ``plan`` overrides
+    :func:`conv_plan`'s launch (for sweeps)."""
     require_cuda(x, w, b)
     for t, what in ((x, "x"), (w, "w"), (b, "b")):
         if t.dtype != torch.float32:
@@ -55,8 +61,9 @@ def conv_direct_cuda(x, w, b, *, stride: int = 1, pad: int = 0,
     chw_out = out_layout == "CHW"
     y = torch.empty((n, m, oh, ow) if chw_out else (n, oh, ow, m),
                     dtype=x.dtype, device=x.device)
-    plan = conv_plan(n, c, m, k, oh, ow, chw_out,
-                     vector_width(w.view(-1, m), 1))
+    if plan is None:
+        plan = conv_plan(n, c, m, k, oh, ow, chw_out,
+                         vector_width(w.view(-1, m), 1))
     LIB.call("repro_conv_direct", ptr(x), ptr(w), ptr(b), ptr(y), n, c, h,
              wd, m, k, stride, pad, oh, ow, int(chw_in), int(chw_out),
              plan.tile, plan.splits, plan.kslice,
@@ -72,5 +79,5 @@ def conv_plan(n: int, c: int, m: int, k: int, oh: int, ow: int,
     is 1)."""
     p, r = oh * ow, k * k * c
     if chw_out:
-        return plan_gemm(m, p, r, n, vec_a=vec_w)
-    return plan_gemm(p, m, r, n, vec_b=vec_w)
+        return plan_gemm(m, p, r, n, vec_a=vec_w, tiles=CONV_TILES)
+    return plan_gemm(p, m, r, n, vec_b=vec_w, tiles=CONV_TILES)

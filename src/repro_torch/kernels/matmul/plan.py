@@ -4,14 +4,13 @@ A pure function of the product's shape, its batch, its dtype and the
 operands' copy widths.  It picks the output tile, the number of K splits
 S (the blocks of one cluster, which share an output tile and sum their
 partials through distributed shared memory) and the K slice of each
-split, and passes them to the C entries as arguments.  Both bindings use
-it: the GEMM (``matmul.kernel``) and the direct convolution
-(``conv_direct.kernel``), whose implicit GEMM is (pixels x K*K*C) @
-(K*K*C x M), or its transpose for a CHW output.
+split, and passes them to the C entries as arguments.  Three bindings
+use it: the GEMM (``matmul.kernel``), the Winograd batched GEMM
+(``winograd_gemm.kernel``, the transform points as the batch) and the
+direct convolution (``conv_direct.kernel``), whose implicit GEMM is
+(pixels x K*K*C) @ (K*K*C x M), or its transpose for a CHW output.
 
-Where some plan launches at least ``FILL`` blocks (most of a wave of the
-card's 132 SMs), only those are considered; among the candidates, the
-choice minimises a small model of the kernel's time on an H100 SXM,
+The choice minimises a small model of the kernel's time on an H100 SXM,
 
     waves * K steps per split * STEP_US + FIXED_US (+ SPLIT_US if S > 1)
 
@@ -19,14 +18,16 @@ per tile.  A wave is as many blocks as the card holds at once, one per
 SM: clusters of S blocks must share a GPC, so only GPCS * (GPC_SMS // S)
 clusters fit in one (the card has 132 SMs in GPCs of 14 to 18).  The
 128 x 128 tile holds one block per SM, so a second wave costs as much as
-the first; the 64 x 64 tile holds two, and the second block on an SM adds
-only ``PAIR_GAIN - 1`` of the throughput.  The constants were fitted to
-this kernel's times over every tile and split count at AlexNet's im2col
-GEMMs and GoogLeNet's 1x1 GEMMs, batch 1 and 8
-(``tools/bench_torch_gemm.py --sweep``; PERF.md gives the run).  Splits
-cut K into equal slices, a whole number of the tile's K steps each, at
-least ``MIN_STEPS`` steps long; none is empty.  Plans are cached: the
-function is pure.
+the first; the others hold two or three, and the blocks that share an
+SM add only ``SHARE_GAIN - 1`` of the throughput.  The narrow tiles
+(128 x 32, 128 x 16) are for a short N: the Winograd GEMM's 16 or 49
+columns of an image.  The constants were fitted to this kernel's times
+over every tile and split count at AlexNet's im2col GEMMs, GoogLeNet's
+1x1 GEMMs and AlexNet's Winograd GEMMs, batch 1 and 8, and at the direct
+conv's conv1 and conv2 (``tools/bench_torch_gemm.py --sweep``; PERF.md
+gives the run).  Splits cut K into equal slices, a whole number of the
+tile's K steps each, at least ``MIN_STEPS`` steps long; none is empty.
+Plans are cached: the function is pure.
 """
 from __future__ import annotations
 
@@ -42,17 +43,18 @@ __all__ = ["GemmPlan", "plan_gemm", "vector_width", "TILES", "SMS",
            "MAX_SPLITS", "MIN_STEPS"]
 
 #: (BM, BN, BK) of each tile instantiation, by the C entries' ``tile``
-TILES = ((128, 128, 16), (64, 64, 32))
+TILES = ((128, 128, 16), (64, 64, 32), (128, 32, 16), (128, 16, 32))
 SMS = 132          # streaming multiprocessors of an H100 SXM
 MAX_SPLITS = 8     # the portable cluster size
 MIN_STEPS = 2      # K steps per split, at least (unless S = 1)
-FILL = 96          # blocks a plan should launch, where K allows
 #: the model, per tile: device microseconds per K step of a block alone
 #: on its SM, per launch, and per launch that splits K
-STEP_US = (1.6, 1.1)
-FIXED_US = (6.0, 3.0)
-SPLIT_US = (0.0, 2.0)
-PAIR_GAIN = 1.17   # throughput of two 64 x 64 blocks on an SM, over one
+STEP_US = (1.6, 1.1, 1.1, 1.1)
+FIXED_US = (6.0, 3.0, 4.5, 3.1)
+SPLIT_US = (0.0, 2.0, 4.4, 4.9)
+#: per tile, the throughput of an SM's co-resident blocks over one block
+#: alone (128 x 128 holds one, 64 x 64 two, 128 x 32 three, 128 x 16 two)
+SHARE_GAIN = (1.0, 1.17, 2.6, 1.13)
 GPCS, GPC_SMS = 7, 16  # the cluster packing that fits the timings
 
 
@@ -118,8 +120,8 @@ def _model_us(tile: int, tiles: int, splits: int, kslice: int) -> float:
     slots = SMS if splits == 1 else min(SMS,
                                         GPCS * (GPC_SMS // splits) * splits)
     waves = cdiv(blocks, slots)
-    if tile == 1 and waves > 1:
-        waves /= PAIR_GAIN
+    if waves > 1:
+        waves /= SHARE_GAIN[tile]
     steps = kslice // TILES[tile][2]
     return (waves * steps * STEP_US[tile] + FIXED_US[tile]
             + (SPLIT_US[tile] if splits > 1 else 0.0))
@@ -128,8 +130,9 @@ def _model_us(tile: int, tiles: int, splits: int, kslice: int) -> float:
 @functools.lru_cache(maxsize=4096)
 def plan_gemm(m: int, n: int, k: int, batch: int = 1,
               dtype: torch.dtype = torch.float32, vec_a: int = 1,
-              vec_b: int = 1) -> GemmPlan:
-    """The launch of an (M x K) @ (K x N) product over ``batch``."""
+              vec_b: int = 1, tiles: Tuple[int, ...] = None) -> GemmPlan:
+    """The launch of an (M x K) @ (K x N) product over ``batch``, on one
+    of ``tiles`` (indices into ``TILES``; all of them by default)."""
     if min(m, n, batch) < 1 or k < 0:
         raise ValueError(f"no GEMM of {m}x{k} @ {k}x{n} over {batch}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -137,16 +140,16 @@ def plan_gemm(m: int, n: int, k: int, batch: int = 1,
     if dtype != torch.float32:
         vec_a = vec_b = 1  # bf16 is loaded through registers
     cands = []
-    for tile, (bm, bn, bk) in enumerate(TILES):
-        tiles = cdiv(m, bm) * cdiv(n, bn) * batch
+    for tile in range(len(TILES)) if tiles is None else tiles:
+        bm, bn, bk = TILES[tile]
+        out_tiles = cdiv(m, bm) * cdiv(n, bn) * batch
         for want in range(1, MAX_SPLITS + 1):
             splits, kslice = _splits(k, bk, want)
             if splits != want or (splits > 1 and kslice < MIN_STEPS * bk):
                 continue
-            cands.append((tiles * splits < FILL,
-                          _model_us(tile, tiles, splits, kslice), splits,
-                          tile, kslice))
-    _, _, splits, tile, kslice = min(cands)
+            cands.append((_model_us(tile, out_tiles, splits, kslice),
+                          splits, tile, kslice))
+    _, splits, tile, kslice = min(cands)
     bm, bn, _ = TILES[tile]
     return GemmPlan(tile, splits, kslice, vec_a, vec_b,
                     (cdiv(n, bn) * splits, cdiv(m, bm), batch))

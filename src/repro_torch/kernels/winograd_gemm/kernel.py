@@ -2,10 +2,12 @@
 (``csrc/winograd_gemm.cu``).
 
 Replaces the reference's ``winograd_bgemm_pallas``: Q[p] = U[p] @ V[p]
-for each of the alpha^2 transform points p, f32 accumulation.  The
-images of a batch run on the kernel's grid beside the points, sharing
-U; the reference's padding of C and N to block multiples becomes
-in-kernel masking.
+for each of the alpha^2 transform points p, (P, M, C) x (P, C, N) ->
+(P, M, N), f32 accumulation.  The kernel runs on the GEMM's Hopper
+mainloop, launched as :func:`~..matmul.plan.plan_gemm` plans it, with the
+points on the grid; a batch of images is folded into N by the caller
+(``ops.conv_winograd``).  The reference's padding of C and N to block
+multiples becomes zero-filled copies.
 """
 from __future__ import annotations
 
@@ -14,32 +16,50 @@ import ctypes
 import torch
 
 from ..common import KernelLib, ptr, require_cuda, stream_ptr
+from ..matmul.plan import GemmPlan, plan_gemm, vector_width
 
-_I, _P = ctypes.c_int, ctypes.c_void_p
+_I, _L, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 LIB = KernelLib("winograd_gemm.cu",
-                {"repro_wino_bgemm": (_P, _P, _P, _I, _I, _I, _I, _I, _P)})
+                {"repro_wino_bgemm": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                                      _L, _L, _L, _I, _I, _I, _I, _I, _P)})
 _MAX_GRID_Z = 65535
 
 
-def winograd_bgemm_cuda(u, v):
-    """u: (P, M, C), v: (N, P, C, T) -> (N, P, M, T); contiguous f32."""
-    require_cuda(u, v)
+def _check(u, v):
     if u.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"Winograd GEMM takes f32, got {u.dtype}, {v.dtype}")
-    if not (u.is_contiguous() and v.is_contiguous()):
-        raise ValueError("Winograd GEMM operands must be contiguous")
-    if u.dim() != 3 or v.dim() != 4:
+    if u.dim() != 3 or v.dim() != 3:
         raise ValueError(f"shapes {tuple(u.shape)}, {tuple(v.shape)}: "
-                         "expected (P, M, C) and (N, P, C, T)")
-    p, m, c = u.shape
-    n, p2, c2, t = v.shape
-    if (p2, c2) != (p, c):
+                         "expected (P, M, C) and (P, C, N)")
+    if u.shape[0] != v.shape[0] or u.shape[2] != v.shape[1]:
         raise ValueError(f"U {tuple(u.shape)} and V {tuple(v.shape)} "
                          "disagree on points or channels")
-    if not 0 < n * p <= _MAX_GRID_Z:
-        raise ValueError(f"{n} images x {p} points outside the grid")
-    q = torch.empty((n, p, m, t), dtype=u.dtype, device=u.device)
-    if m and t:
-        LIB.call("repro_wino_bgemm", ptr(u), ptr(v), ptr(q), p, m, c, t, n,
+    if not 0 < u.shape[0] <= _MAX_GRID_Z:
+        raise ValueError(f"{u.shape[0]} points outside the grid")
+
+
+def bgemm_plan(u, v) -> GemmPlan:
+    """The launch :func:`winograd_bgemm_cuda` makes for these operands:
+    U's copies are 16 bytes where M is its contiguous axis, V's where N
+    is."""
+    _check(u, v)
+    p, m, c = u.shape
+    return plan_gemm(m, v.shape[2], c, p, torch.float32, vector_width(u, 1),
+                     vector_width(v, 2))
+
+
+def winograd_bgemm_cuda(u, v, plan: GemmPlan = None):
+    """u: (P, M, C), v: (P, C, N), f32, any strides -> a contiguous
+    (P, M, N).  ``plan`` overrides the planner's launch (for sweeps)."""
+    require_cuda(u, v)
+    _check(u, v)
+    plan = bgemm_plan(u, v) if plan is None else plan
+    p, m, c = u.shape
+    n = v.shape[2]
+    q = torch.empty((p, m, n), dtype=u.dtype, device=u.device)
+    if m and n:
+        LIB.call("repro_wino_bgemm", ptr(u), ptr(v), ptr(q), p, m, n, c,
+                 *u.stride()[1:], u.stride(0), *v.stride()[1:], v.stride(0),
+                 plan.tile, plan.splits, plan.kslice, plan.vec_a, plan.vec_b,
                  stream_ptr(u.device))
     return q

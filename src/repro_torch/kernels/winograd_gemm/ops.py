@@ -3,7 +3,9 @@
 The input transform V = B^T d B and the output transform y = A^T Q A
 stay framework einsums outside the kernel, as the reference keeps them
 outside Pallas; the batched GEMM over the transform points (most of the
-operations) is the kernel.
+operations) is the kernel.  A batch of images is folded into the GEMM's
+N: the input transform writes V as (P, C, images * T), so one launch
+reads U once for the whole batch.
 """
 from __future__ import annotations
 
@@ -20,22 +22,34 @@ from .ref import bgemm_ref
 
 
 def prepare_kernel(w, m_: int = 2) -> torch.Tensor:
-    """Offline kernel transform: (M, C, K, K) -> (alpha^2, M, C), f32."""
+    """Offline kernel transform: (M, C, K, K) -> (alpha^2, M, C), f32.
+
+    The values are the reference's; the memory is (alpha^2, C, M), M
+    contiguous, seen as an (alpha^2, M, C) view, so that the kernel copies
+    U 16 bytes at a time.  Packing is deployment-time, so the layout costs
+    nothing per call."""
     mm, c, k, _ = w.shape
     A, G, Bt = winograd_matrices(m_, k)
     U = np.einsum("ar,mcrs,bs->abmc", G, np.asarray(w), G)
-    return torch.from_numpy(
-        np.ascontiguousarray(U.reshape((m_ + k - 1) ** 2, mm, c),
-                             np.float32))
+    U = U.reshape((m_ + k - 1) ** 2, mm, c).transpose(0, 2, 1)
+    return torch.from_numpy(np.ascontiguousarray(U, np.float32)).transpose(
+        1, 2)
 
 
 def winograd_bgemm(u, v):
-    """u: (P, M, C) x v: (N, P, C, T) -> (N, P, M, T): the kernel on CUDA
-    tensors (one launch for every image and point), the plain version on
-    CPU tensors."""
+    """u: (P, M, C) x v: (P, C, N) -> (P, M, N), the reference's form; or
+    v: (N, P, C, T) -> (N, P, M, T), one product per image, folded into
+    the first form (a view at N = 1) and unfolded after.  The kernel on
+    CUDA tensors (one launch for every point and image), the plain
+    version on CPU tensors."""
     if on_cpu(v):
         return bgemm_ref(u, v)
-    q = winograd_bgemm_cuda(u, v)
+    if v.dim() == 4:
+        n, p, c, t = v.shape
+        q = winograd_bgemm_cuda(u, v.permute(1, 2, 0, 3).reshape(p, c, n * t))
+        q = q.reshape(p, -1, n, t).permute(2, 0, 1, 3)
+    else:
+        q = winograd_bgemm_cuda(u, v)
     count_launch("winograd_gemm")
     return q
 
@@ -74,14 +88,15 @@ def conv_winograd(x, u, b, *, m_: int = 2, k: int = 3, stride: int = 1,
     pw = (ntw - 1) * m_ + a - (wd + 2 * pad)
     xp = F.pad(xb, (pad, pad + max(pw, 0), pad, pad + max(ph, 0)))
     d = F.unfold(xp, (a, a), stride=m_).reshape(n, c, a, a, nth * ntw)
-    V = torch.einsum("ai,ncijt,bj->nabct", Bt, d, Bt)
-    V = V.reshape(n, a * a, c, nth * ntw).contiguous()
-    Q = winograd_bgemm(u, V).reshape(n, a, a, m, nth, ntw)
+    # the images side by side in N: V (P, C, n * T), Q (P, M, n * T)
+    V = torch.einsum("ai,ncijt,bj->abcnt", Bt, d, Bt).reshape(
+        a * a, c, n * nth * ntw)
+    Q = winograd_bgemm(u, V).reshape(a, a, m, n, nth, ntw)
     if out_layout == "HWC":
-        Y = torch.einsum("ap,nabmtu,bq->ntpuqm", A, Q, A)
+        Y = torch.einsum("ap,abmntu,bq->ntpuqm", A, Q, A)
         y = Y.reshape(n, nth * m_, ntw * m_, m)[:, :oh, :ow, :] + b
     else:
-        Y = torch.einsum("ap,nabmtu,bq->nmtpuq", A, Q, A)
+        Y = torch.einsum("ap,abmntu,bq->nmtpuq", A, Q, A)
         y = Y.reshape(n, m, nth * m_, ntw * m_)[:, :, :oh, :ow] + \
             b[:, None, None]
     return y[0] if single else y

@@ -84,6 +84,34 @@ class TestOnCard:
                 _data(3, (36, 256, 384), (2, 36, 384, 16)))
         self._close(winograd_bgemm(u, v), bgemm_ref(u, v), 1e-3)
 
+    @pytest.mark.parametrize("batch", [1, 8])
+    @pytest.mark.parametrize("m_", [2, 4])
+    @pytest.mark.parametrize("m,c", [(384, 256), (384, 384), (256, 384)])
+    def test_winograd_gemm_alexnet(self, cuda, m, c, m_, batch):
+        """AlexNet's conv3-conv5 (13 x 13 out): U packed as
+        ``prepare_kernel`` packs it, V with the images folded into N;
+        the same bits on a repeated call (split-K sums in rank order)."""
+        p, t = (m_ + 2) ** 2, (-(-13 // m_)) ** 2
+        w, v = _data(15, (m, c, 3, 3), (p, c, batch * t))
+        u = prepare_kernel(w, m_).to(cuda)
+        v = torch.from_numpy(v).to(cuda)
+        common.reset_launch_counts()
+        got = winograd_bgemm(u, v)
+        assert common.launch_counts() == {"winograd_gemm": 1}
+        self._close(got, bgemm_ref(u, v), 1e-3)
+        assert torch.equal(got, winograd_bgemm(u, v))
+
+    @pytest.mark.parametrize("n", [None, 1, 3])
+    def test_winograd_gemm_ragged(self, cuda, n):
+        """M, C and N not multiples of 4 (4-byte copies); the 4-D
+        (images, P, C, T) form at 1 and 3 images."""
+        u, v = (torch.from_numpy(a).to(cuda) for a in
+                _data(16, (16, 77, 45), (n or 1, 16, 45, 51)))
+        v = v[0] if n is None else v
+        got = winograd_bgemm(u, v)
+        self._close(got, bgemm_ref(u, v), 1e-3)
+        assert torch.equal(got, winograd_bgemm(u, v))
+
     @pytest.mark.parametrize("li", ["CHW", "HWC"])
     @pytest.mark.parametrize("lo", ["CHW", "HWC"])
     def test_conv_direct(self, cuda, li, lo):
@@ -133,6 +161,28 @@ class TestOnCard:
         got = getattr(lt_ops, entry)(src)
         assert common.launch_counts() == {f"layout_transform.{entry}": 1}
         assert torch.equal(got, getattr(lt_ref, f"{entry}_ref")(src))
+
+    @pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16,
+                                       torch.float32, torch.float64])
+    @pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 8])
+    def test_layout_transform_short_axis(self, cuda, c, dtype):
+        """Short channel axes (the short-axis routes where ``route``
+        picks them): bit for bit in 1-, 2-, 4- and 8-byte elements,
+        ragged H*W, batch 2 and one image."""
+        x = torch.from_numpy(np.abs(_data(17, (2, c, 13, 21))[0]) * 40).to(
+            cuda, dtype)
+        hwc = x.permute(0, 2, 3, 1).contiguous()
+        cases = [("chw_to_hwc", x), ("hwc_to_chw", hwc)]
+        if c % 8 == 0:
+            cases += [("chw_to_hwc8", x),
+                      ("hwc8_to_chw", hwc.reshape(2, 13, 21, c // 8, 8))]
+        for entry, src in cases:
+            for xx in (src, src[0]):
+                common.reset_launch_counts()
+                got = getattr(lt_ops, entry)(xx)
+                assert common.launch_counts() == {
+                    f"layout_transform.{entry}": 1}
+                assert torch.equal(got, getattr(lt_ref, f"{entry}_ref")(xx))
 
     @pytest.mark.parametrize("dims,dtype,kw", [
         ((1, 4, 4, 256, 256, 64), torch.float32, {}),
@@ -223,7 +273,7 @@ class TestSplitK:
         want = torch.tensor([[k - 2.0 * plan.kslice, 0.0]], device=cuda)
         assert torch.equal(got, want.expand(8, 2))
 
-    @pytest.mark.parametrize("tile", [0, 1])
+    @pytest.mark.parametrize("tile", [0, 1, 2, 3])
     @pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
     def test_every_plan(self, cuda, tile, splits):
         """Any tile and split count the C entry takes gives the product."""
@@ -242,9 +292,50 @@ class TestSplitK:
         c = torch.empty((1, 8, 8), device=cuda)
         for plan in (mm_kernel.GemmPlan(1, 9, 16, 1, 1, (0, 0, 0)),
                      mm_kernel.GemmPlan(1, 2, 16, 1, 1, (0, 0, 0)),
-                     mm_kernel.GemmPlan(2, 1, 64, 1, 1, (0, 0, 0))):
+                     mm_kernel.GemmPlan(4, 1, 64, 1, 1, (0, 0, 0))):
             with pytest.raises(RuntimeError, match="cudaError"):
                 mm_kernel.launch(plan, x, y, None, c, False)
+
+    def test_libraries_keep_their_own_launch_state(self, cuda):
+        """The GEMM and the Winograd GEMM build the same mainloop into two
+        libraries; each must allow its own kernels' shared memory.  In a
+        fresh process the Winograd GEMM launches every tile first, then
+        the GEMM does, then a refused plan must not fail the next launch."""
+        import os
+        import subprocess
+        import sys
+        code = """
+import torch
+from repro_torch.kernels.matmul import kernel as mk
+from repro_torch.kernels.matmul.plan import TILES, GemmPlan
+from repro_torch.kernels.winograd_gemm import kernel as wk
+x = torch.randn(2, 150, 300, device="cuda")
+y = torch.randn(2, 300, 77, device="cuda")
+want = torch.matmul(x, y)
+def close(got):
+    err = float((got - want).abs().max())
+    assert err <= 1e-3 * float(want.abs().max()), err
+plans = [GemmPlan(t, 2, 160, 1, 1, (0, 0, 0)) for t in range(len(TILES))]
+for plan in plans:
+    close(wk.winograd_bgemm_cuda(x, y, plan))
+for plan in plans:
+    c = torch.empty(2, 150, 77, device="cuda")
+    mk.launch(plan, x, y, None, c, False)
+    close(c)
+try:
+    mk.launch(GemmPlan(0, 9, 160, 1, 1, (0, 0, 0)), x, y, None, c, False)
+except RuntimeError:
+    pass
+else:
+    raise AssertionError("a plan of 9 splits was launched")
+mk.launch(plans[0], x, y, None, c, False)
+close(c)
+torch.cuda.synchronize()
+"""
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                       timeout=300)
 
     def test_matmul_is_deterministic(self, cuda):
         """AlexNet conv4's im2col GEMM at batch 1, K split over a

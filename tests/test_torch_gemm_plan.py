@@ -73,11 +73,14 @@ def test_alexnet_im2col(nid, batch):
 @pytest.mark.parametrize("nid", ["conv3", "conv4", "conv5"])
 def test_alexnet_long_k_fills_the_card(nid):
     """Batch 1: 12 to 18 output tiles of 64 x 64 over K = 2304 or 3456;
-    split-K takes each to at least 96 blocks (one block per tile
-    before)."""
+    split-K takes each to 90 or 96 blocks (one block per tile before):
+    the plans that the sweep of every tile and split count found fastest
+    on the H100 (5 splits at conv3 and conv4, 8 at conv5)."""
     m, n, k = IM2COL[nid]
     plan = plan_gemm(m, n, k)
-    assert plan.splits > 1 and plan.blocks >= 96
+    want = {"conv3": 5, "conv4": 5, "conv5": 8}[nid]
+    assert (plan.bm, plan.bn, plan.splits) == (64, 64, want)
+    assert plan.blocks >= 90
 
 
 @pytest.mark.parametrize("batch", [1, 8])
@@ -93,8 +96,47 @@ def test_conv_direct(nid, chw_out, batch):
     check_plan(plan, rows, cols, r, batch)
     assert plan == plan_gemm(rows, cols, r, batch,
                              vec_a=4 if chw_out else 1,
-                             vec_b=1 if chw_out else 4)
+                             vec_b=1 if chw_out else 4, tiles=(0, 1))
+    assert plan.tile in (0, 1)  # the gather is slow on the narrow tiles
     assert plan.blocks >= 96  # conv1: 96 tiles of 64; conv2: 48
+
+
+#: (M, C) of the Winograd GEMM at AlexNet's conv3-conv5, and (P, T) at
+#: F(2,3) and F(4,3) (13 x 13 outputs)
+WINO_MC = [(ALEX[nid].m, ALEX[nid].c) for nid in ("conv3", "conv4",
+                                                   "conv5")]
+WINO_PT = [(16, 49), (36, 16)]
+
+
+@pytest.mark.parametrize("images", [1, 8])
+@pytest.mark.parametrize("p,t", WINO_PT)
+@pytest.mark.parametrize("m,c", WINO_MC)
+def test_winograd_bgemm(m, c, p, t, images):
+    """K3: (M, C) @ (C, images * T) over the P points, U's copies 16
+    bytes (prepare_kernel packs M contiguous), V's where N allows."""
+    n = images * t
+    plan = plan_gemm(m, n, c, p, vec_a=4, vec_b=4 if n % 4 == 0 else 1)
+    check_plan(plan, m, n, c, p)
+    assert plan.vec_a == 4
+
+
+@pytest.mark.parametrize("tile", [2, 3])
+def test_narrow_tiles(tile):
+    """The 128 x 32 and 128 x 16 tiles: runnable plans at any split
+    count."""
+    bm, bn, bk = P.TILES[tile]
+    assert (bm, bn) == ((128, 32), (128, 16))[tile - 2]
+    for m, n, k in [(384, 16, 384), (70, 33, 1000), (5, 1, 3)]:
+        for s in range(1, P.MAX_SPLITS + 1):
+            splits, kslice = P._splits(k, bk, s)
+            plan = P.GemmPlan(tile, splits, kslice, 1, 1,
+                              (cdiv(n, bn) * splits, cdiv(m, bm), 1))
+            check_plan(plan, m, n, k, 1)
+
+
+def test_short_n_takes_a_narrow_tile():
+    """F(4,3) at batch 1: N = 16 columns over 36 points."""
+    assert plan_gemm(384, 16, 384, 36, vec_a=4, vec_b=4).bn <= 32
 
 
 @pytest.mark.parametrize("m,n,k", PW)

@@ -180,14 +180,57 @@ class TestConvIm2col:
 class TestWinogradGemm:
     @pytest.mark.parametrize("p,m,c,n", [(16, 32, 64, 128), (36, 8, 16, 49)])
     def test_bgemm(self, p, m, c, n):
+        """The reference's form, (P, M, C) x (P, C, N) -> (P, M, N)."""
         u, v = _data(p + n, (p, m, c), (p, c, n))
         want = r_wino.winograd_bgemm_pallas(jnp.asarray(u), jnp.asarray(v),
                                             bn=n if n % 128 else 128, bc=c)
-        got = winograd_bgemm(torch.from_numpy(u), torch.from_numpy(v)[None])
-        np.testing.assert_allclose(_np(got[0]), _np(want), **F32)
+        got = winograd_bgemm(torch.from_numpy(u), torch.from_numpy(v))
+        assert got.shape == (p, m, n)
+        np.testing.assert_allclose(_np(got), _np(want), **F32)
         np.testing.assert_allclose(
             _np(bgemm_ref(torch.from_numpy(u), torch.from_numpy(v))),
             _np(r_wino.bgemm_ref(jnp.asarray(u), jnp.asarray(v))), **F32)
+
+    @pytest.mark.parametrize("images", [1, 3])
+    def test_bgemm_per_image_form(self, images):
+        """The (images, P, C, T) form: one reference product per image."""
+        u, v = _data(images, (16, 8, 24), (images, 16, 24, 49))
+        got = winograd_bgemm(torch.from_numpy(u), torch.from_numpy(v))
+        assert got.shape == (images, 16, 8, 49)
+        for i in range(images):
+            want = r_wino.winograd_bgemm_pallas(jnp.asarray(u),
+                                                jnp.asarray(v[i]), bn=49,
+                                                bc=24)
+            np.testing.assert_allclose(_np(got[i]), _np(want), **F32)
+
+    def test_prepare_kernel_packs_m_contiguous(self):
+        """U's values are the reference's; its memory is (P, C, M)."""
+        wt, = _data(3, (12, 5, 3, 3))
+        u = prepare_kernel(wt, 4)
+        assert u.shape == (36, 12, 5) and u.stride() == (60, 1, 12)
+        np.testing.assert_array_equal(u.numpy(),
+                                      np.asarray(r_wino.prepare_kernel(wt, 4)))
+
+    @pytest.mark.parametrize("m_", [2, 4])
+    @pytest.mark.parametrize("li,lo", [("CHW", "CHW"), ("HWC", "HWC"),
+                                       ("CHW", "HWC")])
+    def test_batch_folds_into_n(self, m_, li, lo):
+        """A batch of 3 images (folded into the GEMM's N) against the
+        reference's conv_winograd on each image."""
+        x, wt, b = _data(m_ + 40, (3, 8, 13, 11), (16, 8, 3, 3), (16,),
+                         scale=0.1)
+        u_ref = r_wino.prepare_kernel(wt, m_)
+        xin = np.transpose(x, (0, 2, 3, 1)).copy() if li == "HWC" else x
+        got = conv_winograd(torch.from_numpy(xin), prepare_kernel(wt, m_),
+                            torch.from_numpy(b), m_=m_, k=3, pad=1,
+                            in_layout=li, out_layout=lo)
+        for i in range(3):
+            want = r_wino.conv_winograd(
+                jnp.asarray(xin[i]), u_ref, jnp.asarray(b), m_=m_, k=3,
+                pad=1, in_layout=li, out_layout=lo)
+            np.testing.assert_allclose(_np(got[i]), _np(want),
+                                       err_msg=f"image {i} {li}->{lo}",
+                                       **F32)
 
     @pytest.mark.parametrize("m_", [2, 4])
     @pytest.mark.parametrize("h,w,c,m", [(14, 14, 8, 16), (9, 11, 4, 8)])

@@ -26,6 +26,7 @@ from repro.kernels.flash_attention import ops as r_fa
 from repro.kernels.layout_transform import ops as r_lt
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.layout_transform import kernel as lt_kernel
 from repro_torch.kernels.layout_transform import ops as p_lt
 
 F32_REL = 2e-5
@@ -63,6 +64,27 @@ def test_layout_transforms_equal_the_reference(shape):
         got = getattr(p_lt, name)(torch.from_numpy(a.copy())).numpy()
         assert got.shape == want.shape, name
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+def test_short_channel_axis_takes_the_short_route(c):
+    """conv1's bucket (C = 3 or 4) and other short channel axes: each
+    thread moves a pixel's whole run of channels, both ways, in 1-, 2-,
+    4- and 8-byte elements."""
+    for esize in (1, 2, 4, 8):
+        assert lt_kernel.route(c, 256 * 256, esize) == lt_kernel.SHORT_ROWS
+        assert lt_kernel.route(256 * 256, c, esize) == lt_kernel.SHORT_COLS
+        assert lt_kernel.route(c, 13 * 17, esize) == lt_kernel.SHORT_ROWS
+
+
+@pytest.mark.parametrize("c", [32, 96, 128, 512])
+def test_long_axes_take_the_tile(c):
+    for esize in (1, 2, 4, 8):
+        assert lt_kernel.route(c, 27 * 27, esize) == lt_kernel.TILE
+        assert lt_kernel.route(27 * 27, c, esize) == lt_kernel.TILE
+    # a short axis longer than the kernel's registers hold
+    assert lt_kernel.route(lt_kernel.SHORT_MAX + 1, 4096, 1) == \
+        lt_kernel.TILE
 
 
 def test_layout_transforms_take_a_batch_axis():

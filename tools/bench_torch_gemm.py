@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Per-shape times of the port's GEMM (K1, K2) and direct conv (K4) on
-the card, and a sweep of the GEMM's launch plans.
+"""Per-shape times of the port's GEMM (K1, K2), Winograd batched GEMM
+(K3), direct conv (K4) and layout transforms (K5) on the card, and
+sweeps of the GEMM's launch plans and of K5's routes.
 
     python3 tools/bench_torch_gemm.py [--src DIR] [--sweep] [--tag NAME]
 
@@ -9,13 +10,19 @@ default is this checkout's), so that two trees can be compared in one
 call on one card: unpack the other tree with ``git archive`` into a
 git-ignored directory and run the script on each, in turns.  The shapes
 are ``chip_smoke.py``'s: K2 AlexNet's five im2col GEMMs at batch 1, K1
-four GoogLeNet 1x1 GEMMs, K4 AlexNet's conv1 and conv2 (HWC in and out,
-batch 1).  Times are ``chip_smoke.cuda_ms`` (device ms per call, CUDA
-events over 20 queued calls, median of 5, warm L2); the library is
-``torch.matmul`` or ``F.conv2d`` with TF32 off; the bound is
-max(flops / 67e12, bytes / 3.35e12).  ``--sweep`` also times every tile
-and split count the GEMM's C entry takes, at K2's and K1's shapes (trees
-with the launch planner only).  One JSON object per line on stdout; needs
+four GoogLeNet 1x1 GEMMs, K3 AlexNet's conv3-conv5 at F(2,3) and F(4,3),
+batch 1 and 8 (each tree in its own operand layout: the images folded
+into N where the tree's binding takes the reference's 3-D form, one
+image per grid slice before), K4 AlexNet's conv1 and conv2 (HWC in and
+out, batch 1), K5's four entries at the calibration sweep's shapes.
+Times are ``chip_smoke.cuda_ms`` (device ms per call, CUDA events over
+20 queued calls, median of 5, warm L2); the library is
+``torch.matmul``, ``F.conv2d`` (TF32 off) or ``t().contiguous()``; the
+bound is max(flops / 67e12, bytes / 3.35e12).  ``--sweep`` also times
+every tile and split count the GEMM's C entries take, at K2's, K1's and
+K3's shapes, batch 1 and 8, and at K4's (trees with the launch planner
+only), and each of K5's routes at C = 1 .. 32 channels of 256 x 256
+(trees with routes only).  One JSON object per line on stdout; needs
 one CUDA card.
 """
 from __future__ import annotations
@@ -103,7 +110,7 @@ def main(argv=None) -> int:
                     c = torch.empty((nb, m, n), device=dev)
                     w3 = w.unsqueeze(0).expand(nb, m, k)
                     pick = mmk.matmul_plan(w, pb)
-                    for tile in (0, 1):
+                    for tile in range(len(TILES)):
                         bk = TILES[tile][2]
                         for s in range(1, 9):
                             kslice = -(-k // s // bk) * bk
@@ -144,7 +151,164 @@ def main(argv=None) -> int:
                 row.update(tile=f"{plan.bm}x{plan.bn}", splits=plan.splits,
                            blocks=plan.blocks)
             emit(**row)
+            if not (args.sweep and planned):
+                continue
+            from repro_torch.kernels.conv_direct import kernel as cdk
+            from repro_torch.kernels.matmul.plan import GemmPlan
+            r = s.k * s.k * s.c
+            for tile in getattr(cdk, "CONV_TILES", range(len(TILES))):
+                bm, bn, bk = TILES[tile]
+                for sp in range(1, 9):
+                    kslice = -(-r // sp // bk) * bk
+                    if -(-r // kslice) != sp:
+                        continue  # an empty split
+                    pl = GemmPlan(tile, sp, kslice, plan.vec_a, plan.vec_b,
+                                  (0, 0, 0))
+                    emit(kernel="K4", shape=f"{nid} sweep", batch=1,
+                         tile=f"{bm}x{bn}", splits=sp,
+                         blocks=-(-ohow // bm) * -(-s.m // bn) * sp,
+                         picked=(tile, sp) == (plan.tile, plan.splits),
+                         ms=cuda_ms(torch, lambda: conv_direct_cuda(
+                             x_hwc, w, b, plan=pl, **kw)))
+        bench_k3(args, alex, rand, emit, bound)
+    bench_k5(args, rng, emit)
     return 0
+
+
+def k3_shapes(alex):
+    """(conv, m_, P, M, C, T) of AlexNet's conv3-conv5 at F(2,3), F(4,3)."""
+    for nid in ("conv3", "conv4", "conv5"):
+        s = alex[nid]
+        for m_ in (2, 4):
+            t = -(-s.out_h // m_) * -(-s.out_w // m_)
+            yield nid, m_, (m_ + 2) ** 2, s.m, s.c, t
+
+
+def bench_k3(args, alex, rand, emit, bound):
+    """K3 at batch 1 and 8: the binding on the tree's own operand layout
+    (U from its ``prepare_kernel``; V folded to (P, C, images * T) where
+    the binding takes the reference's 3-D form, (images, P, C, T)
+    before), against ``torch.matmul`` of the same U and the folded V."""
+    import numpy as np
+    import torch
+    from chip_smoke import cuda_ms
+    from repro_torch.kernels.winograd_gemm import kernel as wk
+    from repro_torch.kernels.winograd_gemm import prepare_kernel
+    folded = hasattr(wk, "bgemm_plan")
+    if folded:
+        from repro_torch.kernels.matmul.plan import GemmPlan, TILES
+    for nid, m_, p, m, c, t in k3_shapes(alex):
+        w = np.random.default_rng(p + m + c).normal(
+            size=(m, c, 3, 3)).astype(np.float32) * np.float32(0.05)
+        u = prepare_kernel(w, m_).to("cuda")
+        uc = u.contiguous()
+        for nb in (1, 8):
+            v3 = rand(p, c, nb * t)
+            v = v3 if folded else v3.reshape(p, c, nb, t).permute(
+                2, 0, 1, 3).contiguous()
+            n = nb * t
+            row = dict(kernel="K3", shape=f"{nid} F({m_},3) P={p} "
+                       f"{m}x{c} @ {c}x{n}", batch=nb,
+                       ms=cuda_ms(torch, lambda: wk.winograd_bgemm_cuda(u, v)),
+                       library_ms=cuda_ms(torch,
+                                          lambda: torch.matmul(u, v3)),
+                       bound_ms=bound(2.0 * p * m * c * n,
+                                      4.0 * p * (m * c + c * n + m * n)))
+            if folded:
+                plan = wk.bgemm_plan(u, v)
+                row.update(tile=f"{plan.bm}x{plan.bn}", splits=plan.splits,
+                           blocks=plan.blocks, vec=f"{plan.vec_a}/"
+                           f"{plan.vec_b}")
+            emit(**row)
+            if not (args.sweep and folded):
+                continue
+            pick = wk.bgemm_plan(u, v)
+            # the copy-width levers, on the planner's tile and splits: U
+            # with C contiguous (4-byte copies), V's N padded to a
+            # multiple of 4 (16-byte copies)
+            levers = [("U (P, M, C) contiguous", uc, v)]
+            if n % 4:
+                vp = torch.zeros(p, c, -(-n // 4) * 4, device="cuda")
+                vp[:, :, :n] = v
+                levers.append((f"V padded to N = {vp.shape[2]}", u, vp))
+            for what, uu, vv in levers:
+                pl = wk.bgemm_plan(uu, vv)
+                pl = GemmPlan(pick.tile, pick.splits, pick.kslice, pl.vec_a,
+                              pl.vec_b, (0, 0, 0))
+                emit(kernel="K3", shape=f"{nid} F({m_},3) sweep", batch=nb,
+                     lever=what, vec=f"{pl.vec_a}/{pl.vec_b}",
+                     tile=f"{pick.bm}x{pick.bn}", splits=pick.splits,
+                     ms=cuda_ms(torch, lambda: wk.winograd_bgemm_cuda(
+                         uu, vv, pl)))
+            for tile, (bm, bn, bk) in enumerate(TILES):
+                for s in range(1, 9):
+                    kslice = -(-c // s // bk) * bk
+                    if -(-c // kslice) != s:
+                        continue  # an empty split
+                    pl = GemmPlan(tile, s, kslice, pick.vec_a, pick.vec_b,
+                                  (0, 0, 0))
+                    emit(kernel="K3", shape=f"{nid} F({m_},3) sweep",
+                         batch=nb, tile=f"{bm}x{bn}", splits=s,
+                         blocks=-(-m // bm) * -(-n // bn) * s * p,
+                         picked=(tile, s) == (pick.tile, pick.splits),
+                         ms=cuda_ms(torch, lambda: wk.winograd_bgemm_cuda(
+                             u, v, pl)))
+
+
+#: K5's timed shapes: (C, H, W) of the calibration sweep's buckets
+K5_SHAPES = ((4, 256, 256), (128, 32, 32), (256, 16, 16), (512, 16, 16))
+
+
+def bench_k5(args, rng, emit):
+    """As ``chip_smoke.py`` times them: K5a (CHW -> HWC) and K5b
+    (HWC -> CHW) at conv1's bucket, K5c (CHW -> HWC8) and K5d
+    (HWC8 -> CHW) at the others, against ``permute().contiguous()``; with
+    ``--sweep``, each route at C = 1 .. 32 channels of 256 x 256, f32."""
+    import torch
+    from chip_smoke import HBM_BW, cuda_ms
+    from repro_torch.kernels.layout_transform import kernel as lk
+    routed = hasattr(lk, "route")
+
+    def data(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype("float32")).to(
+            "cuda")
+
+    for c, h, w in K5_SHAPES:
+        x = data(c, h, w)
+        hwc = x.permute(1, 2, 0).contiguous()
+        if c % 8:
+            cases = [("K5a", x, lk.chw_to_hwc_cuda, (c, h * w)),
+                     ("K5b", hwc, lk.hwc_to_chw_cuda, (h * w, c))]
+        else:
+            cases = [("K5c", x, lk.chw_to_hwc8_cuda, (c, h * w)),
+                     ("K5d", hwc.reshape(h, w, c // 8, 8),
+                      lk.hwc8_to_chw_cuda, (h * w, c))]
+        for kern, xin, fn, (r, s_) in cases:
+            # the library transposes the same (R, S) bytes
+            lib_in = xin.reshape(r, s_)
+            row = dict(kernel=kern, shape=str(tuple(xin.shape)),
+                       ms=cuda_ms(torch, lambda: fn(xin)),
+                       library_ms=cuda_ms(
+                           torch, lambda: lib_in.t().contiguous()),
+                       bound_ms=2.0 * 4 * x.numel() / HBM_BW * 1e3)
+            if routed:
+                row.update(route=lk.route(r, s_, 4))
+            emit(**row)
+    if not (args.sweep and routed):
+        return
+    for c in (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32):
+        x = data(c, 256, 256)
+        hwc = x.permute(1, 2, 0).contiguous()
+        for kern, xin, r, s_, short in (("K5a", x, c, 65536, lk.SHORT_ROWS),
+                                        ("K5b", hwc, 65536, c,
+                                         lk.SHORT_COLS)):
+            for rt in (lk.TILE, short):
+                if rt != lk.TILE and c > lk.SHORT_MAX:
+                    continue
+                emit(kernel=kern, shape=f"({c}, 256, 256) sweep", route=rt,
+                     picked=rt == lk.route(r, s_, 4),
+                     ms=cuda_ms(torch, lambda: lk.transpose_cuda(
+                         xin, r, s_, rt)))
 
 
 if __name__ == "__main__":

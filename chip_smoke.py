@@ -10,18 +10,21 @@ checkout of the repository.  Phases, each of which raises on failure:
 1. environment: card, power limit, versions; build every CUDA kernel
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel)
    and print each kernel's registers, shared memory and spills as
-   ``nvcc -Xptxas -v`` reports them (the GEMM mainloop's kernels must
-   spill nothing);
+   ``nvcc -Xptxas -v`` reports them (the GEMM mainloop's kernels, in
+   every dtype, and every flash-attention instantiation must spill
+   nothing);
 2. kernels: each hand-written kernel's binding against its plain PyTorch
    version on the card at AlexNet's (and GoogLeNet's 1x1) shapes, at
    batch 1 and 8, with its time, the plain version's, one library
    call's and the card's lower bound, and for the GEMM, the Winograd
    GEMM (its batch folded into N) and the direct conv the launch
    planner's choice (tile, K splits, blocks) and a second call that must
-   give the same bits; the layout transforms (K5, bit for bit, in 1- to
-   8-byte elements, short channel axes included) and flash attention
-   (K6, every masking and layout option) at the calibration sweep's
-   shapes; then every kernel primitive's
+   give the same bits, in f32 and in bf16 and f16; the layout transforms
+   (K5, bit for bit, in 1- to 8-byte elements, short channel axes
+   included) and flash attention (K6, every masking and layout option,
+   head dims 7 to 320, f32, bf16 and f16, its planner's query tile, KV
+   split and blocks, the same bits on a repeated call) at the
+   calibration sweep's shapes; then every kernel primitive's
    whole convolution (padding, gathers, transforms, crops and each
    fused layout) at batch 8 against an f64 ``F.conv2d``;
 3. main path: AlexNet at 227x227 through ``select_pbqp`` under the H100
@@ -71,7 +74,7 @@ PEAK_F32 = 67e12
 HBM_BW = 3.35e12
 #: f32 kernels against their plain versions: summation order differs
 #: (K up to 3456 at conv4's im2col GEMM) and TF32 is off, so 1e-3 of the
-#: largest plain magnitude; bf16 GEMM: one bf16 rounding of the output
+#: largest plain magnitude; bf16 and f16: one rounding of the output
 TOL_F32 = 1e-3
 TOL_BF16 = 2e-2
 #: flash attention in f32: kernel and plain version sum the D-term
@@ -263,9 +266,10 @@ class KernelReport:
         return entry
 
 
-#: the sources on the GEMM mainloop (``csrc/sgemm_sm90.cuh``), whose
-#: kernels must spill nothing
-MAINLOOP_SOURCES = ("matmul.cu", "conv_direct.cu", "winograd_gemm.cu")
+#: the sources whose kernels must spill nothing: those on the GEMM
+#: mainloop (``csrc/sgemm_sm90.cuh``) and flash attention's
+MAINLOOP_SOURCES = ("matmul.cu", "conv_direct.cu", "winograd_gemm.cu",
+                    "flash_attention.cu")
 
 
 def demangle(names):
@@ -377,12 +381,13 @@ def kernel_phase(torch, F):
                            f"{nid} {what} batch 8 {out}")
                 k1.same_bits(lambda: matmul_cuda(lhs_, rhs_, out_layout=out),
                              f"{nid} {what} batch 8 {out}")
-        xb, wb, bb = (t.to(torch.bfloat16) for t in (x, w, b))
-        k1.compare(matmul_cuda(wb, xb, bb, fuse_relu=True),
-                   matmul_ref(wb, xb, bb, fuse_relu=True), TOL_BF16,
-                   f"{nid} bf16")
-        k1.same_bits(lambda: matmul_cuda(wb, xb, bb, fuse_relu=True),
-                     f"{nid} bf16")
+        for dt in (torch.bfloat16, torch.float16):
+            xb, wb, bb = (t.to(dt) for t in (x, w, b))
+            k1.compare(matmul_cuda(wb, xb, bb, fuse_relu=True),
+                       matmul_ref(wb, xb, bb, fuse_relu=True), TOL_BF16,
+                       f"{nid} {dt}")
+            k1.same_bits(lambda: matmul_cuda(wb, xb, bb, fuse_relu=True),
+                         f"{nid} {dt}")
         k1.time(torch, f"{nid} ({m}x{c} @ {c}x{n})",
                 lambda: matmul_cuda(w, x), lambda: matmul_ref(w, x),
                 lambda: torch.matmul(w, x), 2.0 * m * n * c,
@@ -413,6 +418,15 @@ def kernel_phase(torch, F):
                          2.0 * a * a * s.m * s.c * n,
                          4.0 * a * a * (s.m * s.c + s.c * n + s.m * n),
                          bgemm_plan(u, v))
+        # bf16 and f16 at F(4,3), batch 8: loaded through registers
+        u = rand(36, s.c, s.m, scale=0.05).transpose(1, 2)
+        v = rand(36, s.c, 8 * 16)
+        for dt in (torch.bfloat16, torch.float16):
+            ub, vb = u.to(dt), v.to(dt)
+            what = f"{nid} F(4,3) batch 8 {dt}"
+            k3.compare(winograd_bgemm_cuda(ub, vb), bgemm_ref(ub, vb),
+                       TOL_BF16, what)
+            k3.same_bits(lambda: winograd_bgemm_cuda(ub, vb), what)
     u, v = rand(16, 77, 45, scale=0.05), rand(16, 45, 51)
     k3.compare(winograd_bgemm_cuda(u, v), bgemm_ref(u, v), TOL_F32,
                "ragged 77x45 @ 45x51")
@@ -440,6 +454,14 @@ def kernel_phase(torch, F):
                                f"{nid} {li}->{lo} batch {nb}")
                     k4.same_bits(lambda: conv_direct_cuda(xx, w, b, **kw),
                                  f"{nid} {li}->{lo} batch {nb}")
+                for dt in (torch.bfloat16, torch.float16):
+                    xb, wb, bb = x8.to(dt), w.to(dt), b.to(dt)
+                    what = f"{nid} {li}->{lo} batch 8 {dt}"
+                    k4.compare(conv_direct_cuda(xb, wb, bb, **kw),
+                               conv_direct_ref(xb, wb, bb, **kw), TOL_BF16,
+                               what)
+                    k4.same_bits(lambda: conv_direct_cuda(xb, wb, bb, **kw),
+                                 what)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         kw = dict(stride=s.stride, pad=s.pad)
         ohow = s.out_h * s.out_w
@@ -515,17 +537,23 @@ def layout_phase(torch, dev):
 
 def attention_phase(torch, F, dev):
     """K6: flash attention against its plain version on the sweep's two
-    shapes and on every option of the kernel, one launch per call."""
+    shapes and on every option of the kernel, head dims 7 to 320 (padded
+    to an instantiated width, or sliced above 256), f32, bf16 and f16,
+    one launch per call; a cluster split that leaves ranks with no KV
+    tile; the sweep shapes timed, each with its launch plan, and a
+    repeated call that gives the same bits."""
     from repro_torch.kernels.common import launch_counts, reset_launch_counts
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (attention_plan,
+                                                     flash_attention,
                                                      flash_attention_cuda,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention.plan import make_plan
 
     rpt = KernelReport("flash_attention",
                        "src/repro_torch/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention/kernel.py:93")
     rng = np.random.default_rng(3)
-    bf16 = torch.bfloat16
+    bf16, f16 = torch.bfloat16, torch.float16
     # (what, (B, Hq, Hkv, Lq, Lk, D), dtype, options)
     cases = [
         ("sweep conv1/conv2", (1, 4, 4, 1024, 1024, 64), None, {}),
@@ -541,8 +569,17 @@ def attention_phase(torch, F, dev):
         ("fully masked rows", (1, 2, 2, 64, 16, 64), None,
          dict(causal=True, window=8)),
         ("head dim 256", (1, 4, 4, 130, 130, 256), None, {}),
+        ("head dim 16", (1, 4, 4, 200, 200, 16), None, dict(causal=True)),
+        ("head dim 32", (2, 4, 2, 256, 256, 32), None, {}),
+        ("head dim 112", (1, 4, 4, 300, 300, 112), None, dict(softcap=5.0)),
+        ("head dim 320", (1, 4, 2, 130, 90, 320), None, dict(causal=True)),
+        ("head dim 7, LHD", (1, 4, 4, 100, 100, 7), None,
+         dict(layout="LHD")),
         ("bf16", (1, 4, 4, 256, 256, 64), bf16, {}),
         ("bf16 causal", (1, 4, 2, 200, 200, 128), bf16, dict(causal=True)),
+        ("f16", (1, 4, 4, 256, 256, 64), f16, {}),
+        ("f16 head dim 112", (1, 4, 2, 200, 200, 112), f16,
+         dict(causal=True)),
     ]
     for what, (b, hq, hkv, lq, lk, d), dtype, kw in cases:
         lhd = kw.get("layout") == "LHD"
@@ -559,23 +596,41 @@ def attention_phase(torch, F, dev):
                      **{o: kw[o] for o in ("causal", "window", "softcap")
                         if o in kw})
         rpt.compare(got, flash_attention_ref(q, k, v, **plain),
-                    TOL_BF16 if dtype == bf16 else TOL_ATTN, what)
+                    TOL_ATTN if dtype is None else TOL_BF16, what)
         if what == "fully masked rows":
             # keys 0..15, window 8: rows 23 and up see no key
             check(bool((got[:, :, 23:] == 0).all()) and
                   bool((got[:, :, :23].abs().sum(-1) > 0).all()),
                   f"{rpt.name}: fully masked rows are not exactly 0")
         if what.startswith("sweep"):
+            rpt.same_bits(lambda: flash_attention_cuda(q, k, v,
+                                                       scale=d ** -0.5),
+                          what)
             rpt.time(torch, f"{what} {qs}",
                      lambda: flash_attention_cuda(q, k, v, scale=d ** -0.5),
                      lambda: flash_attention_ref(q, k, v, scale=d ** -0.5),
                      lambda: F.scaled_dot_product_attention(q, k, v),
                      4.0 * b * hq * lq * lk * d,
-                     4.0 * (2 * q.numel() + k.numel() + v.numel()))
+                     4.0 * (2 * q.numel() + k.numel() + v.numel()),
+                     attention_plan(q, k, v))
+    # a split of 4 over the first query tile's one KV tile: ranks 1-3
+    # hold no key (m = -1e30, l = 0) and must weigh nothing
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 4, 512, 64)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    kw = dict(scale=0.125, causal=True, window=48, lk_valid=300)
+    plan = make_plan(1, 4, 512, 64, 64, 64, 4)
+    got = flash_attention_cuda(q, k, v, plan=plan, **kw)
+    rpt.compare(got, flash_attention_ref(q, k, v, **kw), TOL_ATTN,
+                "split of 4 with empty ranks")
+    check(bool((got[:, :, 347:] == 0).all()),
+          f"{rpt.name}: rows no key reaches are not exactly 0")
+    rpt.same_bits(lambda: flash_attention_cuda(q, k, v, plan=plan, **kw),
+                  "split of 4 with empty ranks")
     sync(torch, dev)
-    print(f"  flash attention: {len(cases)} cases within {TOL_ATTN} (f32) "
-          f"/ {TOL_BF16} (bf16) of the largest plain magnitude, fully "
-          f"masked rows exactly 0, one launch each")
+    print(f"  flash attention: {len(cases) + 1} cases within {TOL_ATTN} "
+          f"(f32) / {TOL_BF16} (bf16, f16) of the largest plain magnitude, "
+          f"head dims 7 to 320, fully masked rows exactly 0, one launch "
+          f"each")
     return [rpt]
 
 

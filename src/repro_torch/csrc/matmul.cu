@@ -1,5 +1,6 @@
-// Tiled GEMM with an optional fused bias + ReLU epilogue, f32 or bf16
-// inputs, f32 accumulation.  Serves repro_torch.kernels.matmul and,
+// Tiled GEMM with an optional fused bias + ReLU epilogue, f32, bf16 or
+// f16 inputs (one dtype for all operands), f32 accumulation, the output
+// in the input's dtype.  Serves repro_torch.kernels.matmul and,
 // through it, the im2col convolution (repro_torch.kernels.conv_im2col).
 //
 // Replaces: src/repro/kernels/matmul/kernel.py matmul_pallas (bodies
@@ -70,6 +71,17 @@ int repro_matmul_bf16(const void* a, const void* b, const void* bias,
   return matmul<__nv_bfloat16>(a, b, bias, c, M, N, K, sam, sak, sbk, sbn,
                                scm, scn, nb, sab, sbb, scb, relu, tile,
                                splits, kslice, vec_a, vec_b, stream);
+}
+
+int repro_matmul_f16(const void* a, const void* b, const void* bias,
+                     void* c, int M, int N, int K, int64_t sam, int64_t sak,
+                     int64_t sbk, int64_t sbn, int64_t scm, int64_t scn,
+                     int nb, int64_t sab, int64_t sbb, int64_t scb, int relu,
+                     int tile, int splits, int kslice, int vec_a, int vec_b,
+                     void* stream) {
+  return matmul<__half>(a, b, bias, c, M, N, K, sam, sak, sbk, sbn, scm,
+                        scn, nb, sab, sbb, scb, relu, tile, splits, kslice,
+                        vec_a, vec_b, stream);
 }
 
 }  // extern "C"

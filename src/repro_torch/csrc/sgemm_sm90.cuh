@@ -23,7 +23,8 @@
 //   Copies are 16 bytes only where the planner found the staged axis
 //   contiguous and 16-byte aligned (vec == 4); elsewhere they are 4
 //   bytes, which is the common case at AlexNet's odd N and K.  The bf16
-//   entry loads through registers and converts there.
+//   and f16 entries load through registers and convert there: the same
+//   f32 mainloop, the output rounded once to the input's dtype.
 // * Split-K in one launch with no workspace.  The S blocks of a cluster
 //   (S <= 8, on grid x) share one output tile, each reducing a contiguous
 //   slice of K.  Each block parks its partial tile in its own (now idle)
@@ -44,6 +45,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,9 +91,13 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store_f32(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store_f32(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_f32(float v, __half* p) {
+  *p = __float2half(v);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {

@@ -1,5 +1,5 @@
-// Batched GEMM over the Winograd transform points, f32 in, f32
-// accumulation:
+// Batched GEMM over the Winograd transform points, f32, bf16 or f16 in
+// (one dtype for U, V and Q), f32 accumulation, Q in the input's dtype:
 //   Q[p] = U[p] @ V[p]    U (P, M, C), V (P, C, N), Q (P, M, N)
 // with P = alpha^2 (16 for F(2,3), 36 for F(4,3)) and N the tiles of
 // every image of the batch side by side (N = images * T).
@@ -26,8 +26,27 @@
 // fills the card where M / BM * P blocks would not.  U is packed with M
 // contiguous ((P, C, M) in memory), so its copies are 16 bytes; V's are 16
 // bytes where N is a multiple of 4.  The split-K sum runs in rank order:
-// the same bits on every call.
+// the same bits on every call.  bf16 and f16 run the same mainloop,
+// converting to f32 as they are loaded (through registers, 2 bytes an
+// element).
 #include "sgemm_sm90.cuh"
+
+namespace {
+
+template <typename T>
+int wino_bgemm(const void* u, const void* v, void* q, int P, int M, int N,
+               int C, int64_t sam, int64_t sak, int64_t sab, int64_t sbk,
+               int64_t sbn, int64_t sbb, int tile, int splits, int kslice,
+               int vec_a, int vec_b, void* stream) {
+  const repro::sm90::GemmArgs<T> p{
+      static_cast<const T*>(u), static_cast<const T*>(v), nullptr,
+      static_cast<T*>(q), M, N, C, sam, sak, sbk, sbn,
+      /*scm=*/N, /*scn=*/1, sab, sbb, /*scb=*/int64_t(M) * N, /*relu=*/0,
+      splits, kslice, vec_a, vec_b};
+  return repro::sm90::gemm(p, P, tile, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -40,12 +59,28 @@ int repro_wino_bgemm(const void* u, const void* v, void* q, int P, int M,
                      int64_t sbk, int64_t sbn, int64_t sbb, int tile,
                      int splits, int kslice, int vec_a, int vec_b,
                      void* stream) {
-  const repro::sm90::GemmArgs<float> p{
-      static_cast<const float*>(u), static_cast<const float*>(v), nullptr,
-      static_cast<float*>(q), M, N, C, sam, sak, sbk, sbn,
-      /*scm=*/N, /*scn=*/1, sab, sbb, /*scb=*/int64_t(M) * N, /*relu=*/0,
-      splits, kslice, vec_a, vec_b};
-  return repro::sm90::gemm(p, P, tile, static_cast<cudaStream_t>(stream));
+  return wino_bgemm<float>(u, v, q, P, M, N, C, sam, sak, sab, sbk, sbn, sbb,
+                           tile, splits, kslice, vec_a, vec_b, stream);
+}
+
+// The same for bf16 and f16 operands (vec_a = vec_b = 1).
+int repro_wino_bgemm_bf16(const void* u, const void* v, void* q, int P,
+                          int M, int N, int C, int64_t sam, int64_t sak,
+                          int64_t sab, int64_t sbk, int64_t sbn, int64_t sbb,
+                          int tile, int splits, int kslice, int vec_a,
+                          int vec_b, void* stream) {
+  return wino_bgemm<__nv_bfloat16>(u, v, q, P, M, N, C, sam, sak, sab, sbk,
+                                   sbn, sbb, tile, splits, kslice, vec_a,
+                                   vec_b, stream);
+}
+
+int repro_wino_bgemm_f16(const void* u, const void* v, void* q, int P, int M,
+                         int N, int C, int64_t sam, int64_t sak, int64_t sab,
+                         int64_t sbk, int64_t sbn, int64_t sbb, int tile,
+                         int splits, int kslice, int vec_a, int vec_b,
+                         void* stream) {
+  return wino_bgemm<__half>(u, v, q, P, M, N, C, sam, sak, sab, sbk, sbn, sbb,
+                            tile, splits, kslice, vec_a, vec_b, stream);
 }
 
 }  // extern "C"

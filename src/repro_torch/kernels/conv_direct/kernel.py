@@ -18,8 +18,11 @@ from ..common import KernelLib, ptr, require_cuda, stream_ptr
 from ..matmul.plan import GemmPlan, plan_gemm, vector_width
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
-LIB = KernelLib("conv_direct.cu",
-                {"repro_conv_direct": (_P, _P, _P, _P) + (_I,) * 16 + (_P,)})
+_ENTRY = {torch.float32: "repro_conv_direct",
+          torch.bfloat16: "repro_conv_direct_bf16",
+          torch.float16: "repro_conv_direct_f16"}
+LIB = KernelLib("conv_direct.cu", {e: (_P, _P, _P, _P) + (_I,) * 16 + (_P,)
+                                   for e in _ENTRY.values()})
 _MAX_GRID_Z = 65535
 #: the tiles the kernel is built for: 128 x 128 and 64 x 64 (the narrow
 #: ones spend too long gathering their 128-row operand; the planner's
@@ -31,13 +34,18 @@ def conv_direct_cuda(x, w, b, *, stride: int = 1, pad: int = 0,
                      in_layout: str = "HWC", out_layout: str = "HWC",
                      plan: GemmPlan = None):
     """x: (N, H, W, C), or (N, C, H, W) with ``in_layout="CHW"``;
-    w: (K, K, C, M); b: (M,); contiguous f32.  Returns (N, OH, OW, M), or
-    (N, M, OH, OW) with ``out_layout="CHW"``.  ``plan`` overrides
-    :func:`conv_plan`'s launch (for sweeps)."""
+    w: (K, K, C, M); b: (M,); contiguous, f32, bf16 or f16 (one dtype
+    for all).  Accumulates in f32 and returns (N, OH, OW, M), or
+    (N, M, OH, OW) with ``out_layout="CHW"``, in x's dtype.  ``plan``
+    overrides :func:`conv_plan`'s launch (for sweeps)."""
     require_cuda(x, w, b)
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"direct conv takes f32, bf16 or f16; x is "
+                        f"{x.dtype}")
     for t, what in ((x, "x"), (w, "w"), (b, "b")):
-        if t.dtype != torch.float32:
-            raise TypeError(f"direct conv takes f32; {what} is {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"direct conv: {what} is {t.dtype}, x is "
+                            f"{x.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"direct conv: {what} must be contiguous")
     if x.dim() != 4 or w.dim() != 4:
@@ -64,7 +72,7 @@ def conv_direct_cuda(x, w, b, *, stride: int = 1, pad: int = 0,
     if plan is None:
         plan = conv_plan(n, c, m, k, oh, ow, chw_out,
                          vector_width(w.view(-1, m), 1))
-    LIB.call("repro_conv_direct", ptr(x), ptr(w), ptr(b), ptr(y), n, c, h,
+    LIB.call(_ENTRY[x.dtype], ptr(x), ptr(w), ptr(b), ptr(y), n, c, h,
              wd, m, k, stride, pad, oh, ow, int(chw_in), int(chw_out),
              plan.tile, plan.splits, plan.kslice,
              plan.vec_a if chw_out else plan.vec_b, stream_ptr(x.device))

@@ -14,10 +14,11 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = False,
 
     ``layout="HLD"``: q is (B, Hq, Lq, D), k/v are (B, Hkv, Lk, D) ->
     (B, Hq, Lq, D).  ``layout="LHD"``: all sequence-major (B, L, H, D),
-    read and written where they lie.  GQA needs Hq % Hkv == 0; Lq and Lk
-    may have any length.  ``bq``/``bk`` are the reference's tile sizes,
-    kept in the signature: the CUDA kernel's tiles are 64 x 64 and it
-    masks ragged tiles, so neither changes the result.
+    read and written where they lie.  GQA needs Hq % Hkv == 0; Lq, Lk and
+    the head dim may have any length.  f32, bf16 or f16, computed in f32,
+    returned in q's dtype.  ``bq``/``bk`` are the reference's tile sizes,
+    kept in the signature: the CUDA kernel's tiles come from its launch
+    planner and it masks ragged tiles, so neither changes the result.
     """
     assert layout in ("HLD", "LHD")
     if bq < 1 or bk < 1:

@@ -20,9 +20,11 @@ _I, _L, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _L, _L,
          _L, _I, _I, _I, _I, _I, _I, _P)
 LIB = KernelLib("matmul.cu", {"repro_matmul_f32": _ARGS,
-                              "repro_matmul_bf16": _ARGS})
+                              "repro_matmul_bf16": _ARGS,
+                              "repro_matmul_f16": _ARGS})
 _ENTRY = {torch.float32: "repro_matmul_f32",
-          torch.bfloat16: "repro_matmul_bf16"}
+          torch.bfloat16: "repro_matmul_bf16",
+          torch.float16: "repro_matmul_f16"}
 _MAX_GRID_Z = 65535
 
 
@@ -40,12 +42,14 @@ def matmul_cuda(x, y, bias=None, *, fuse_relu: bool = False,
 
     x (M, K) — or (K, M) with ``lhs_layout="km"`` — and y (K, N), each
     with an optional leading batch axis (size 1 or B broadcasts); bias
-    (N,).  f32 or bf16, one dtype for all; any strides.  Returns
-    (B?, M, N), or (B?, N, M) with ``out_layout="nm"``, in x's dtype.
+    (N,).  f32, bf16 or f16, one dtype for all; any strides.  Accumulates
+    in f32 and returns (B?, M, N), or (B?, N, M) with
+    ``out_layout="nm"``, in x's dtype, as the reference kernel does.
     """
     require_cuda(x, y, bias)
     if x.dtype not in _ENTRY:
-        raise TypeError(f"GEMM kernel takes f32 or bf16, got {x.dtype}")
+        raise TypeError(f"GEMM kernel takes f32, bf16 or f16, got "
+                        f"{x.dtype}")
     for t, what in ((y, "y"), (bias, "bias")):
         if t is not None and t.dtype != x.dtype:
             raise TypeError(f"{what} is {t.dtype}, x is {x.dtype}")

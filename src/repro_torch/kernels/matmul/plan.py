@@ -135,10 +135,11 @@ def plan_gemm(m: int, n: int, k: int, batch: int = 1,
     of ``tiles`` (indices into ``TILES``; all of them by default)."""
     if min(m, n, batch) < 1 or k < 0:
         raise ValueError(f"no GEMM of {m}x{k} @ {k}x{n} over {batch}")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the GEMM mainloop takes f32 or bf16, not {dtype}")
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"the GEMM mainloop takes f32, bf16 or f16, not "
+                        f"{dtype}")
     if dtype != torch.float32:
-        vec_a = vec_b = 1  # bf16 is loaded through registers
+        vec_a = vec_b = 1  # 2-byte types are loaded through registers
     cands = []
     for tile in range(len(TILES)) if tiles is None else tiles:
         bm, bn, bk = TILES[tile]

@@ -7,10 +7,12 @@ file imports no JAX (the card's machine has none); run it there with
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_card.py
 
 Tolerances: f32 within 1e-3 of the largest plain magnitude (TF32 off;
-the kernel and cuBLAS sum in different orders), bf16 within 2e-2 (one
-bf16 rounding of the output).  The layout transforms copy bits and must
-be exact; flash attention in f32 within 1e-5 of the largest plain
-magnitude (other summation orders over D and Lk terms, a few ulps).
+the kernel and cuBLAS sum in different orders), bf16 and f16 within 2e-2
+(one rounding of the output to 8 or 11 mantissa bits).  The layout
+transforms copy bits and must be exact; flash attention in f32 within
+1e-5 of the largest plain magnitude (other summation orders over D and
+Lk terms, a few ulps), at every head dim (padded to an instantiated
+width, or sliced above 256).
 The whole convolutions (the code around the kernels: padding, patch
 gathers, Winograd transforms, crops) are held to the same 1e-3 against
 an f64 ``F.conv2d``.  The GEMM and the direct conv sum their cluster's
@@ -25,8 +27,11 @@ from repro_torch.kernels import common
 from repro_torch.kernels.conv_direct import (conv_direct, conv_direct_ref,
                                              conv_plan)
 from repro_torch.kernels.conv_im2col import conv_im2col
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (attention_plan,
+                                                 flash_attention,
+                                                 flash_attention_cuda,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention.plan import make_plan
 from repro_torch.kernels.layout_transform import ops as lt_ops
 from repro_torch.kernels.layout_transform import ref as lt_ref
 from repro_torch.kernels.matmul import (matmul, matmul_plan, matmul_ref,
@@ -67,7 +72,8 @@ class TestOnCard:
 
     @pytest.mark.parametrize("lhs", ["mk", "km"])
     @pytest.mark.parametrize("out", ["mn", "nm"])
-    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
     def test_matmul(self, cuda, lhs, out, dtype):
         x, y, b = (torch.from_numpy(a).to(cuda, dtype) for a in
                    _data(2, (130, 257), (257, 129), (129,)))
@@ -83,6 +89,21 @@ class TestOnCard:
         u, v = (torch.from_numpy(a).to(cuda) for a in
                 _data(3, (36, 256, 384), (2, 36, 384, 16)))
         self._close(winograd_bgemm(u, v), bgemm_ref(u, v), 1e-3)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    def test_winograd_gemm_2byte(self, cuda, dtype):
+        """bf16 and f16 operands: the f32 mainloop, loaded through
+        registers, Q rounded once to the operands' dtype; U packed M
+        contiguous, V with 8 images folded into N."""
+        w, v = _data(18, (256, 384, 3, 3), (36, 384, 8 * 16))
+        u = prepare_kernel(w * np.float32(0.05), 4).to(cuda, dtype)
+        v = torch.from_numpy(v).to(cuda, dtype)
+        common.reset_launch_counts()
+        got = winograd_bgemm(u, v)
+        assert common.launch_counts() == {"winograd_gemm": 1}
+        assert got.dtype == dtype
+        self._close(got, bgemm_ref(u, v), 2e-2)
+        assert torch.equal(got, winograd_bgemm(u, v))
 
     @pytest.mark.parametrize("batch", [1, 8])
     @pytest.mark.parametrize("m_", [2, 4])
@@ -122,6 +143,24 @@ class TestOnCard:
         kw = dict(stride=4, pad=0, in_layout=li, out_layout=lo)
         self._close(conv_direct(x, w, b, **kw), conv_direct_ref(x, w, b, **kw),
                     1e-3)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    @pytest.mark.parametrize("li,lo", [("CHW", "HWC"), ("HWC", "CHW")])
+    def test_conv_direct_2byte(self, cuda, li, lo, dtype):
+        """AlexNet's conv2 in bf16 and f16: the gathered operand through
+        registers, 2 bytes an element."""
+        x, w, b = (torch.from_numpy(a).to(cuda, dtype) for a in
+                   _data(19, (2, 96, 27, 27), (5, 5, 96, 256), (256,),
+                         scale=0.05))
+        if li == "HWC":
+            x = x.permute(0, 2, 3, 1).contiguous()
+        kw = dict(stride=1, pad=2, in_layout=li, out_layout=lo)
+        common.reset_launch_counts()
+        got = conv_direct(x, w, b, **kw)
+        assert common.launch_counts() == {"conv_direct": 1}
+        assert got.dtype == dtype
+        self._close(got, conv_direct_ref(x, w, b, **kw), 2e-2)
+        assert torch.equal(got, conv_direct(x, w, b, **kw))
 
     @pytest.mark.parametrize("li,lo", [("CHW", "CHW"), ("HWC", "HWC"),
                                        ("CHW", "HWC")])
@@ -193,6 +232,13 @@ class TestOnCard:
          dict(layout="LHD", causal=True)),
         ((1, 2, 2, 64, 16, 64), torch.float32, dict(causal=True, window=8)),
         ((1, 4, 2, 130, 77, 256), torch.bfloat16, {}),
+        ((1, 4, 4, 200, 200, 16), torch.float32, dict(causal=True)),
+        ((2, 4, 2, 150, 150, 32), torch.float32, {}),
+        ((1, 4, 4, 300, 300, 112), torch.float32, dict(softcap=5.0)),
+        ((1, 4, 2, 130, 90, 320), torch.float32, dict(causal=True)),
+        ((1, 4, 4, 256, 256, 7), torch.float32, dict(layout="LHD")),
+        ((1, 4, 2, 256, 256, 64), torch.float16, dict(causal=True)),
+        ((2, 4, 4, 100, 100, 112), torch.float16, dict(layout="LHD")),
     ])
     def test_flash_attention(self, cuda, dims, dtype, kw):
         b, hq, hkv, lq, lk, d = dims
@@ -211,6 +257,52 @@ class TestOnCard:
         self._close(got, want, 1e-5 if dtype == torch.float32 else 2e-2)
         if lk == 16:  # window 8 over keys 0..15: rows 23 and up see none
             assert bool((got[:, :, 23:] == 0).all())
+        assert torch.equal(got, flash_attention(q, k, v, **kw))
+
+    @pytest.mark.parametrize("d", [16, 64, 112, 320])
+    def test_flash_attention_every_plan(self, cuda, d):
+        """Every query tile and split count the C entry takes gives the
+        plain version's output, the same bits on a repeated call."""
+        q, k, v = (torch.from_numpy(a).to(cuda)
+                   for a in _data(20, (1, 2, 200, d), (1, 2, 333, d),
+                                  (1, 2, 333, d)))
+        kw = dict(scale=d ** -0.5, causal=True)
+        want = flash_attention_ref(q, k, v, **kw)
+        for bq in (32,) if d > 256 else (32, 64):
+            for s in range(1, 9):
+                plan = make_plan(1, 2, 200, d, min(256, max(
+                    32, 1 << (d - 1).bit_length())), bq, s)
+                got = flash_attention_cuda(q, k, v, plan=plan, **kw)
+                self._close(got, want, 1e-5)
+                assert torch.equal(
+                    got, flash_attention_cuda(q, k, v, plan=plan, **kw))
+
+    def test_flash_attention_split_with_an_empty_rank(self, cuda):
+        """Causal + window: the first query tile sees one KV tile, so
+        ranks 1.. of its cluster get none (m = -1e30, l = 0) and must
+        weigh nothing; rows no key reaches stay exactly 0."""
+        q, k, v = (torch.from_numpy(a).to(cuda)
+                   for a in _data(21, (1, 4, 512, 64), (1, 4, 512, 64),
+                                  (1, 4, 512, 64)))
+        kw = dict(scale=0.125, causal=True, window=48, lk_valid=300)
+        plan = make_plan(1, 4, 512, 64, 64, 64, 4)
+        got = flash_attention_cuda(q, k, v, plan=plan, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        self._close(got, want, 1e-5)
+        # keys 0..299 with window 48: rows 347 and up see none
+        assert bool((got[:, :, 347:] == 0).all())
+        assert bool((got[:, :, :347].abs().sum(-1) > 0).all())
+        assert torch.equal(got, flash_attention_cuda(q, k, v, plan=plan,
+                                                     **kw))
+
+    def test_flash_attention_bad_plan_is_refused(self, cuda):
+        q = torch.zeros((1, 2, 64, 64), device=cuda)
+        for plan in (make_plan(1, 2, 64, 64, 32, 64, 1),   # DP < D
+                     make_plan(1, 2, 64, 64, 64, 48, 1),   # BQ 48
+                     make_plan(1, 2, 64, 64, 64, 64, 9)):  # 9 splits
+            with pytest.raises(RuntimeError, match="cudaError"):
+                flash_attention_cuda(q, q, q, scale=1.0, plan=plan)
+        assert attention_plan(q, q, q).dp == 64
 
 
 # (what, M, K, N, batch of x, batch of y, lhs, out, bias + ReLU, dtype)
@@ -226,6 +318,7 @@ SPLIT_K_CASES = [
      torch.float32),
     ("km / nm", 129, 1500, 31, 1, 1, "km", "nm", True, torch.float32),
     ("bf16", 70, 1000, 45, 2, 2, "mk", "mn", True, torch.bfloat16),
+    ("f16", 70, 1000, 45, 2, 2, "km", "nm", True, torch.float16),
 ]
 
 
@@ -256,6 +349,7 @@ class TestSplitK:
         got = matmul(x, y, bias, **kw)
         self._close(got, matmul_ref(x, y, bias, **kw),
                     1e-3 if dtype == torch.float32 else 2e-2)
+        assert got.dtype == dtype
         assert torch.equal(got, matmul(x, y, bias, **kw))
 
     def test_relu_after_the_whole_sum(self, cuda):

@@ -162,7 +162,11 @@ def test_refuses_what_no_kernel_runs():
     with pytest.raises(ValueError):
         plan_gemm(4, 4, -1)
     with pytest.raises(TypeError):
-        plan_gemm(4, 4, 4, dtype=torch.float16)
+        plan_gemm(4, 4, 4, dtype=torch.float64)
+    # bf16 and f16 are planned too, their copies 2 bytes through registers
+    for dt in (torch.bfloat16, torch.float16):
+        plan = plan_gemm(4, 4, 4, dtype=dt, vec_a=4, vec_b=4)
+        assert (plan.vec_a, plan.vec_b) == (1, 1)
 
 
 def test_plans_are_pure():

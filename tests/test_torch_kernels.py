@@ -8,8 +8,11 @@ the shapes and layouts of tests/test_kernels.py.
 Tolerances: f32 at rtol = atol = 1e-4 — both sides accumulate in f32,
 but XLA's dot and PyTorch's matmul sum in different orders (and the
 reference pads K to block multiples), which moves the last few bits of
-sums over up to 257 terms; bf16 at 2e-2 — the output is rounded to bf16
-(8 mantissa bits), so one rounding step of a value near 4 is ~2e-2.
+sums over up to 257 terms; bf16 and f16 at 2e-2 — the output is rounded
+to bf16 (8 mantissa bits) or f16 (11), so one rounding step of a value
+near 4 is ~2e-2 in bf16.  Every kernel takes f32, bf16 and f16, as the
+reference's do: inputs in the dtype, f32 accumulation, the output in the
+dtype.
 
 The CUDA kernels themselves are compared with their plain versions on
 the card by tests/test_torch_card.py.
@@ -60,7 +63,7 @@ def _np(t):
 
 
 class TestMatmul:
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
     def test_shapes_dtypes(self, dtype):
         jd, td = getattr(jnp, dtype), getattr(torch, dtype)
         for m, k, n in [(128, 128, 128), (256, 384, 128), (64, 96, 32),
@@ -116,6 +119,25 @@ class TestConvDirect:
         got = conv_direct(torch.from_numpy(x), torch.from_numpy(wt),
                           torch.from_numpy(b), stride=stride, pad=pad)
         np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+    def test_2byte_dtypes(self, dtype):
+        """bf16 and f16: f32 accumulation, the output in the dtype."""
+        jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+        x, wt, b = _data(12, (13, 11, 8), (3, 3, 8, 24), (24,), scale=0.1)
+        for li, lo in (("HWC", "HWC"), ("CHW", "CHW")):
+            xin = np.transpose(x, (2, 0, 1)).copy() if li == "CHW" else x
+            want = r_direct.conv_direct(
+                jnp.asarray(xin, jd), jnp.asarray(wt, jd),
+                jnp.asarray(b, jd), stride=1, pad=1, in_layout=li,
+                out_layout=lo)
+            got = conv_direct(torch.from_numpy(xin).to(td),
+                              torch.from_numpy(wt).to(td),
+                              torch.from_numpy(b).to(td), stride=1, pad=1,
+                              in_layout=li, out_layout=lo)
+            assert got.dtype == td
+            np.testing.assert_allclose(_np(got), _np(want),
+                                       err_msg=f"{li}->{lo}", **BF16)
 
     def test_layouts(self):
         x, wt, b = _data(11, (9, 11, 8), (3, 3, 8, 16), (16,), scale=0.1)
@@ -190,6 +212,19 @@ class TestWinogradGemm:
         np.testing.assert_allclose(
             _np(bgemm_ref(torch.from_numpy(u), torch.from_numpy(v))),
             _np(r_wino.bgemm_ref(jnp.asarray(u), jnp.asarray(v))), **F32)
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+    def test_bgemm_2byte_dtypes(self, dtype):
+        """bf16 and f16 operands: f32 accumulation, Q in the dtype."""
+        jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+        u, v = _data(17, (16, 24, 40), (16, 40, 49))
+        want = r_wino.winograd_bgemm_pallas(jnp.asarray(u, jd),
+                                            jnp.asarray(v, jd), bn=49,
+                                            bc=40)
+        got = winograd_bgemm(torch.from_numpy(u).to(td),
+                             torch.from_numpy(v).to(td))
+        assert got.dtype == td
+        np.testing.assert_allclose(_np(got), _np(want), **BF16)
 
     @pytest.mark.parametrize("images", [1, 3])
     def test_bgemm_per_image_form(self, images):

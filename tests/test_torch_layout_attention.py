@@ -10,7 +10,9 @@ equal.  Flash attention in f32 within 2e-5 of the reference's largest
 magnitude: both sides accumulate in f32, but the reference's online
 softmax rescales block by block and sums in another order than the
 port's dense plain version, a few f32 ulps of outputs of order 1.  bf16
-within 2e-2: both outputs are rounded to bf16 (8 mantissa bits).
+and f16 within 2e-2: both outputs are rounded to bf16 (8 mantissa bits)
+or f16 (11); the head dims below 64 and the odd 112 hold the same f32
+bound.
 
 The CUDA kernels themselves are compared with their plain versions on
 the card by tests/test_torch_card.py and chip_smoke.py.
@@ -131,6 +133,11 @@ FA_CASES = {
     "masked_rows": ((1, 2, 2, 64, 16, 64), "float32",
                     dict(causal=True, window=8)),
     "bf16": ((1, 4, 4, 100, 100, 64), "bfloat16", {}),
+    "head_dim_16": ((1, 4, 4, 100, 100, 16), "float32", dict(causal=True)),
+    "head_dim_32": ((2, 4, 2, 100, 100, 32), "float32", {}),
+    "head_dim_112": ((1, 4, 4, 100, 100, 112), "float32",
+                     dict(softcap=5.0)),
+    "f16": ((1, 4, 2, 100, 100, 64), "float16", dict(causal=True)),
 }
 
 

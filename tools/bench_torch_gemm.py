@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Per-shape times of the port's GEMM (K1, K2), Winograd batched GEMM
-(K3), direct conv (K4) and layout transforms (K5) on the card, and
-sweeps of the GEMM's launch plans and of K5's routes.
+(K3), direct conv (K4), layout transforms (K5) and flash attention (K6)
+on the card, and sweeps of the GEMM's and K6's launch plans and of K5's
+routes.
 
     python3 tools/bench_torch_gemm.py [--src DIR] [--sweep] [--tag NAME]
+                                      [--only K1 K2 ...]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (the
 default is this checkout's), so that two trees can be compared in one
@@ -14,16 +16,23 @@ four GoogLeNet 1x1 GEMMs, K3 AlexNet's conv3-conv5 at F(2,3) and F(4,3),
 batch 1 and 8 (each tree in its own operand layout: the images folded
 into N where the tree's binding takes the reference's 3-D form, one
 image per grid slice before), K4 AlexNet's conv1 and conv2 (HWC in and
-out, batch 1), K5's four entries at the calibration sweep's shapes.
+out, batch 1), K5's four entries at the calibration sweep's shapes, K6
+at the sweep's two shapes (1, 4, 1024, 64) and (1, 4, 256, 64) and at
+D = 128 and 256 with L = 1024, f32, non-causal (and in bf16 and f16 at
+the sweep's shapes, for trees whose K6 takes them).
 Times are ``chip_smoke.cuda_ms`` (device ms per call, CUDA events over
 20 queued calls, median of 5, warm L2); the library is
-``torch.matmul``, ``F.conv2d`` (TF32 off) or ``t().contiguous()``; the
-bound is max(flops / 67e12, bytes / 3.35e12).  ``--sweep`` also times
+``torch.matmul``, ``F.conv2d`` (TF32 off), ``t().contiguous()`` or
+``F.scaled_dot_product_attention`` (whose device kernels the profiler
+names in ``library_kernels``); the bound is max(flops / 67e12,
+bytes / 3.35e12).  ``--sweep`` also times
 every tile and split count the GEMM's C entries take, at K2's, K1's and
 K3's shapes, batch 1 and 8, and at K4's (trees with the launch planner
-only), and each of K5's routes at C = 1 .. 32 channels of 256 x 256
-(trees with routes only).  One JSON object per line on stdout; needs
-one CUDA card.
+only), each of K5's routes at C = 1 .. 32 channels of 256 x 256
+(trees with routes only), and every query tile and KV split of K6 at its
+four shapes (trees with K6's planner only).  ``--only K6`` (or any of
+K1 .. K6) times those kernels alone.  One JSON object per line on
+stdout; needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -55,6 +64,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--only", nargs="+", default=None,
+                    help="time these kernels only (K1 .. K6)")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -82,7 +93,12 @@ def main(argv=None) -> int:
         return torch.from_numpy(a).to(dev)
 
     def emit(**row):
+        if args.only and row["kernel"][:2] not in args.only:
+            return
         print(json.dumps(dict(tag=args.tag, card=card, **row)), flush=True)
+
+    def wanted(*kernels):
+        return not args.only or any(k in args.only for k in kernels)
 
     def bound(flops, nbytes):
         return max(flops / PEAK_F32, nbytes / HBM_BW) * 1e3
@@ -90,7 +106,7 @@ def main(argv=None) -> int:
     alex, k1, k2 = shapes()
     with true_f32():
         for kern, rows in (("K2", k2), ("K1", k1)):
-            for nid, m, k, n in rows:
+            for nid, m, k, n in rows if wanted(kern) else ():
                 w, p = rand(m, k, scale=0.05), rand(1, k, n)
                 row = dict(kernel=kern, shape=f"{nid} {m}x{k} @ {k}x{n}",
                            ms=cuda_ms(torch, lambda: matmul_cuda(w, p)),
@@ -126,7 +142,7 @@ def main(argv=None) -> int:
                                                       pick.splits),
                                  ms=cuda_ms(torch, lambda: mmk.launch(
                                      pl, w3, pb, None, c, False)))
-        for nid in ("conv1", "conv2"):
+        for nid in ("conv1", "conv2") if wanted("K4") else ():
             s = alex[nid]
             w, b = rand(s.k, s.k, s.c, s.m, scale=0.05), rand(s.m)
             x = rand(1, s.c, s.h, s.w)
@@ -170,8 +186,12 @@ def main(argv=None) -> int:
                          picked=(tile, sp) == (plan.tile, plan.splits),
                          ms=cuda_ms(torch, lambda: conv_direct_cuda(
                              x_hwc, w, b, plan=pl, **kw)))
-        bench_k3(args, alex, rand, emit, bound)
-    bench_k5(args, rng, emit)
+        if wanted("K3"):
+            bench_k3(args, alex, rand, emit, bound)
+        if wanted("K6"):
+            bench_k6(args, rand, emit, bound)
+    if wanted("K5"):
+        bench_k5(args, rng, emit)
     return 0
 
 
@@ -253,6 +273,78 @@ def bench_k3(args, alex, rand, emit, bound):
                          picked=(tile, s) == (pick.tile, pick.splits),
                          ms=cuda_ms(torch, lambda: wk.winograd_bgemm_cuda(
                              u, v, pl)))
+
+
+#: K6's timed shapes: (B, H, L, D), self-attention over L positions
+K6_SHAPES = ((1, 4, 1024, 64), (1, 4, 256, 64), (1, 4, 1024, 128),
+             (1, 4, 1024, 256))
+
+
+def library_kernels(torch, fn):
+    """The device kernels one call of ``fn`` runs, by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def bench_k6(args, rand, emit, bound):
+    """K6 against ``F.scaled_dot_product_attention`` on the same q, k, v
+    (f32, non-causal, scale D^-1/2); with ``--sweep``, every (BQ, S) the
+    C entry takes at each shape."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import cuda_ms
+    from repro_torch.kernels.flash_attention import kernel as fk
+    planned = hasattr(fk, "attention_plan")
+    if planned:
+        from repro_torch.kernels.flash_attention import plan as fp
+    for b, h, l, d in K6_SHAPES:
+        q, k, v = (rand(b, h, l, d) for _ in range(3))
+        scale = d ** -0.5
+        row = dict(kernel="K6", shape=str((b, h, l, d)),
+                   ms=cuda_ms(torch, lambda: fk.flash_attention_cuda(
+                       q, k, v, scale=scale)),
+                   library_ms=cuda_ms(torch, lambda:
+                                      F.scaled_dot_product_attention(
+                                          q, k, v)),
+                   bound_ms=bound(4.0 * b * h * l * l * d,
+                                  4.0 * (2 * q.numel() + k.numel()
+                                         + v.numel())),
+                   library_kernels=library_kernels(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           q, k, v)))
+        if planned:
+            plan = fk.attention_plan(q, k, v)
+            row.update(dp=plan.dp, bq=plan.bq, splits=plan.splits,
+                       blocks=plan.blocks)
+        emit(**row)
+        if planned and d == 64:  # the 2-byte types, at the sweep shapes
+            for dt in (torch.bfloat16, torch.float16):
+                qh, kh, vh = (t.to(dt) for t in (q, k, v))
+                emit(kernel="K6", shape=str((b, h, l, d)), dtype=str(dt),
+                     ms=cuda_ms(torch, lambda: fk.flash_attention_cuda(
+                         qh, kh, vh, scale=scale)),
+                     library_ms=cuda_ms(torch, lambda:
+                                        F.scaled_dot_product_attention(
+                                            qh, kh, vh)))
+        if not (args.sweep and planned):
+            continue
+        dp = fp.padded_dim(d)
+        for bq in fp.QUERY_TILES:
+            for s in range(1, fp.MAX_SPLITS + 1):
+                pl = fp.make_plan(b, h, l, d, dp, bq, s)
+                emit(kernel="K6", shape=f"{(b, h, l, d)} sweep", dp=dp,
+                     bq=bq, splits=s, blocks=pl.blocks,
+                     picked=(bq, s) == (plan.bq, plan.splits),
+                     ms=cuda_ms(torch, lambda: fk.flash_attention_cuda(
+                         q, k, v, scale=scale, plan=pl)))
 
 
 #: K5's timed shapes: (C, H, W) of the calibration sweep's buckets

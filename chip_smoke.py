@@ -41,22 +41,40 @@ checkout of the repository.  Phases, each of which raises on failure:
    run must resume with nothing to measure, each of the 56 kernel items
    must launch exactly one kernel of its own package, and
    ``CalibratedCostModel`` must select plans, at batch 1 and 8, that
-   agree with SUM2D; a CPU-stamped profile must be refused on the card.
+   agree with SUM2D; a CPU-stamped profile must be refused on the card;
+8. serving: the conv ``PlanServer`` on AlexNet (exact buckets, the H100
+   model with the kernels priced, ``jit=True``: each executable is a
+   CUDA graph captured at its warm-up) answers 4 ``infer`` requests, an
+   ``infer_batch`` of 8 and 5 queued requests in one ``flush``; every
+   answer must hold the eager plan's bits and agree with SUM2D, each
+   capture must count one launch per kernel conv (the Winograd kernel on
+   conv3-conv5 at batch 1), a second server on the same cache directory
+   must solve nothing, a NaN fault on the Winograd kernel must be
+   quarantined and re-solved away with a correct answer, a failed
+   compile retried, and the batch-2 and batch-4 buckets captured on the
+   worker pool while the main thread serves; then per-request host
+   latency (p50, p95) of ``jit=True`` against a ``jit=False`` server, in
+   turns, and the profiler's device-busy time of one replayed forward.
 
 Plans are compared at every conv's output, the pre-softmax logits and
 the probabilities, each within 1e-3 of the reference's largest
 magnitude (the probabilities also at the quickstart's 2e-3).
 
-Every plan run in phases 3-7 is a path: the launch counts are set to 0
-just before its one forward and read just after, and must equal one
-launch per conv that its selection gave to each kernel (the batch runs
-on the kernels' grids).  So is each calibration kernel item: counts at
-0, its builder's function called once, counts read.  The last lines are
+Every plan run in phases 3-7 is a path (eager, ``jit=False``): the
+launch counts are set to 0 just before its one forward and read just
+after, and must equal one launch per conv that its selection gave to
+each kernel (the batch runs on the kernels' grids).  So is each
+calibration kernel item: counts at 0, its benchmark function called
+once, counts read.  Phase 8's requests are one path: counts at 0 before
+the first request, read after the last, and they must equal two
+forwards' launches per executable built (its warm-up and its capture),
+since a replay counts nothing.  The last lines are
 a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -99,12 +117,9 @@ CALIB_ARGS = ["--net", CALIB_NET, "--scale", str(CALIB_SCALE), "--batches",
 #: f32 rounding); the probabilities also at the quickstart's 2e-3
 NET_REL = 1e-3
 NET_TOL = 2e-3
-#: the wrapper behind each kernel primitive's launch counter
-COUNTER_OF = {"pallas_direct_hwc": "conv_direct",
-              "pallas_im2col_chw": "conv_im2col",
-              "pallas_wino_f2x3_chw": "winograd_gemm",
-              "pallas_wino_f4x3_chw": "winograd_gemm",
-              "pallas_pw_gemm_chw": "matmul"}
+#: phase 8: timed requests per server and request kind (enough samples
+#: for a p95 resolved between the 15th and 16th largest)
+SERVE_REPS = 300
 #: ~2 ms at the H100's 1.98 GHz boost clock: longer than the host takes
 #: to queue 20 single-kernel calls
 SLEEP_CYCLES = 4_000_000
@@ -684,6 +699,8 @@ def conv_phase(torch, F):
 
 
 def to_np(t):
+    if isinstance(t, np.ndarray):
+        return t.astype(np.float32, copy=False)
     return t.detach().float().cpu().numpy()
 
 
@@ -712,16 +729,6 @@ def taps(net):
                 and net.nodes[n].op.name == "softmax")
     return [n.id for n in net.conv_nodes()] + [net.nodes[soft].inputs[0],
                                                soft]
-
-
-def expected_launches(sel):
-    """One launch per conv that the selection gives to each kernel."""
-    want = {}
-    for node in sel.net.conv_nodes():
-        k = COUNTER_OF.get(sel.choices[node.id].primitive.name)
-        if k:
-            want[k] = want.get(k, 0) + 1
-    return want
 
 
 def run_calibrate_cli(cli, argv, log):
@@ -760,6 +767,8 @@ def calibration_phase(torch, dev, out_dir, run_path, paths, net, params,
     from repro_torch.core.selection import select_pbqp
     from repro_torch.kernels.common import launch_counts, reset_launch_counts
     from repro_torch.launch import calibrate as cli
+
+    eager_plan = functools.partial(compile_plan, jit=False)
 
     out_dir.mkdir(parents=True, exist_ok=True)
     prof_path = out_dir / "alexnet_profile.json"
@@ -859,10 +868,10 @@ def calibration_phase(torch, dev, out_dir, run_path, paths, net, params,
             ch = csel.choices[nd.id]
             print(f"    {nd.id:6s} -> {ch.primitive.name} [{ch.l_in}->"
                   f"{ch.l_out}]")
-        cnet = compile_plan(csel, params, batch=b, device=dev)
+        cnet = eager_plan(csel, params, batch=b, device=dev)
         x = inputs[b]
         run_path(f"calibrated_pbqp_alexnet_b{b}", cnet, x)
-        agree(compile_plan(csel, params, batch=b, device=dev,
+        agree(eager_plan(csel, params, batch=b, device=dev,
                            outputs=taps_)(x), sum2d[b],
               f"calibrated PBQP vs SUM2D, batch {b}")
         plans[f"calibrated PBQP, batch {b}"] = (b, cnet)
@@ -883,6 +892,257 @@ def calibration_phase(torch, dev, out_dir, run_path, paths, net, params,
         print(f"  a profile stamped cpu:cpu:n1 is refused: {e}")
     else:
         check(False, "CalibratedCostModel took a CPU profile on the card")
+
+
+def same_bits(got, want, what):
+    """A served answer (numpy) holds the eager plan's bits."""
+    for k in want:
+        a, b = to_np(got[k]), to_np(want[k])
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"{what} {k}: the captured graph's output differs from the "
+              f"eager plan's (max |diff| {np.abs(a - b).max():.3e})")
+
+
+def percentiles(samples):
+    ms = np.asarray(samples) * 1e3
+    return (f"p50 {np.percentile(ms, 50):.4f} ms, p95 "
+            f"{np.percentile(ms, 95):.4f} ms, mean {ms.mean():.4f} ms "
+            f"({len(ms)} requests)")
+
+
+def serving_phase(torch, dev, xs, sum2d_prob, paths):
+    """Phase 8: the conv ``PlanServer`` on the card, its executables
+    captured as CUDA graphs (``jit=True``).  ``xs``: the main path's
+    eight 227 x 227 images (numpy); ``sum2d_prob``: SUM2D's
+    probabilities for them (batch 8)."""
+    import collections
+
+    from repro_torch.convnets import alexnet
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.kernels import expected_launches
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.reliability import FaultInjector, parse_fault_plan
+    from repro_torch.serving import BucketPolicy, PlanServer
+
+    cost = AnalyticCostModel(H100_SPEC, include_kernels=True)
+    policy = BucketPolicy(spatial="exact", channel="exact")
+    shape = xs.shape[1:]
+    params = alexnet(1.0).init_params(0)  # the servers' params_seed
+    eager = {}
+
+    def server(**kw):
+        return PlanServer(lambda s: alexnet(1.0), cost, policy=policy,
+                          device=dev, **kw)
+
+    def eager_out(sel, x, n):
+        """The eager plan of ``sel`` at batch ``n`` on images ``x``: one
+        call per image at batch 1, else one call with zero rows padding
+        the batch, as the server pads it."""
+        key = (id(sel), n)
+        if key not in eager:
+            eager[key] = compile_plan(sel, params, batch=n, jit=False,
+                                      device=dev)
+        if n == 1:
+            return [eager[key](xi) for xi in x]
+        xb = np.zeros((n, *shape), np.float32)
+        xb[:len(x)] = x
+        out = eager[key](xb)
+        return [{k: v[i] for k, v in out.items()} for i in range(len(x))]
+
+    def held(srv, answers, rows, n, what):
+        """Each answer holds the eager plan's bits and agrees with SUM2D."""
+        sel = srv.plan_for(shape, n)
+        for a, e, i in zip(answers, eager_out(sel, xs[rows], n), rows):
+            same_bits(a, e, f"{what}, request {i}")
+            agree({"prob": a["prob"]}, {"prob": sum2d_prob[i]},
+                  f"{what} vs SUM2D, request {i}")
+
+    def wino_convs(sel):
+        return [nid for nid, c in sel.choices.items() if c.primitive
+                and c.primitive.name.startswith("pallas_wino")]
+
+    def check_capture(srv, n, what):
+        cnet = srv.compiled_for(shape, n)
+        want = expected_launches(cnet.sel)
+        check(cnet.graph is not None and cnet.capture_launches == want,
+              f"{what}: capture launches {cnet.capture_launches}, "
+              f"expected {want}")
+        return cnet
+
+    # ---- requests: 4 single, one batch of 8, 5 queued + one flush ----
+    cache = tempfile.TemporaryDirectory()
+    srv = server(cache_dir=cache.name, lru_capacity=4)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    single = [srv.infer(xs[i]) for i in range(4)]
+    batch = srv.infer_batch(list(xs))
+    futs = [srv.enqueue(xs[i]) for i in range(5)]
+    check(srv.flush() == 5, "flush served another count than 5")
+    queued = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    paths["serve_alexnet"] = counts
+    st = srv.stats()
+    sels = {n: srv.plan_for(shape, n) for n in (1, 8)}
+    # each executable launched its kernels in its eager warm-up and on
+    # every replay (the capture records them and launches none): the
+    # build's own call replays once, then batch 1 serves 4 requests and
+    # batch 8 two calls (infer_batch, flush)
+    replays = {1: 1 + 4, 8: 1 + 2}
+    want = collections.Counter()
+    for n, sel in sels.items():
+        got = srv.compiled_for(shape, n).graph.replays
+        check(got == replays[n], f"batch {n}: {got} replays, expected "
+              f"{replays[n]}")
+        for k, v in expected_launches(sel).items():
+            want[k] += (1 + replays[n]) * v
+    check(counts == dict(want), f"serving path: launches {counts}, "
+          f"expected warm-up + replays of each executable {dict(want)}")
+    check(st["compiles"] == 2 and st["batch_calls"] == 2 and
+          st["coalesced"] == 11 and st["requests"] == 17,
+          f"serving counters {st}")
+    wc = wino_convs(sels[1])
+    check(wc == ["conv3", "conv4", "conv5"], f"batch 1: the Winograd kernel "
+          f"runs on {wc}, expected conv3-conv5")
+    for n, sel in sels.items():
+        cnet = check_capture(srv, n, f"batch {n}")
+        picks = [(nid, c.primitive.name) for nid, c in sel.choices.items()
+                 if c.primitive]
+        print(f"  batch {n}: plan {picks}; capture launches "
+              f"{cnet.capture_launches}")
+    print(f"  path serve_alexnet (4 infer, infer_batch of 8, 5 queued + "
+          f"flush): launches {counts} = warm-up + {replays[1]} replays "
+          f"of the batch-1 executable, warm-up + {replays[8]} of the "
+          f"batch-8 one")
+    held(srv, single, list(range(4)), 1, "infer")
+    held(srv, batch, list(range(8)), 8, "infer_batch")
+    held(srv, queued, list(range(5)), 8, "enqueue + flush")
+    print("  every answer holds the eager plan's bits and agrees with "
+          f"SUM2D within {NET_REL}; counters: "
+          + ", ".join(f"{k}={st[k]}" for k in (
+              "requests", "solves", "compiles", "exec_hits", "batch_calls",
+              "coalesced", "plan_misses"))
+          + f"; solve {st['solve_s']:.3f} s, compile (packing, warm-up "
+          f"and capture) {st['compile_s']:.3f} s, for both buckets")
+
+    # ---- the plan cache: a second server reads the plans from disk ----
+    srv2 = server(cache_dir=cache.name, lru_capacity=4)
+    again = [srv2.infer(xs[0])] + srv2.infer_batch(list(xs))
+    st2 = srv2.stats()
+    check(st2["solves"] == 0 and st2["plan_disk_hits"] == 2,
+          f"second server on the cache: {st2}")
+    for a, b in zip(again, [single[0]] + batch):
+        same_bits(a, b, "second server")
+    print(f"  second server on the same cache_dir: solves={st2['solves']}, "
+          f"plan_disk_hits={st2['plan_disk_hits']}, same bits")
+    del srv2
+
+    # ---- faults: NaN from the Winograd kernel, a failed compile ----
+    inj = FaultInjector(parse_fault_plan(
+        "compile:raise@0+1,kernel:nan@0+0~pallas_wino"), seed=0)
+    fsrv = server(fault_injector=inj, kernel_retries=2,
+                  compile_backoff_s=0.01)
+    out = fsrv.infer(xs[0])
+    fst = fsrv.stats()
+    fsel = fsrv.plan_for(shape)
+    check(fst["compile_retries"] >= 1, f"no compile retry: {fst}")
+    check(fst["quarantines"] >= 1 and not wino_convs(fsel) and
+          "winograd_gemm" not in expected_launches(fsel),
+          f"the quarantine left the Winograd kernel in the plan: {fst}")
+    check_capture(fsrv, 1, "after the quarantine")
+    held(fsrv, [out], [0], 1, "after the quarantine")
+    picks = [(nid, fsel.choices[nid].primitive.name)
+             for nid in ("conv3", "conv4", "conv5")]
+    print(f"  faults (compile:raise@0+1, kernel:nan~pallas_wino): "
+          f"quarantined {fst['quarantined']}; re-solved without K3: "
+          f"{picks}; answer correct; counters: " + ", ".join(
+              f"{k}={fst[k]}" for k in (
+                  "compile_retries", "compile_fallbacks", "kernel_failures",
+                  "quarantines", "solves", "compiles", "ladder_exact")))
+    del fsrv
+
+    # ---- concurrency: prefetch batch 2 and 4, serve batch 1 meanwhile ----
+    f2, f4 = srv.prefetch(shape, n=2), srv.prefetch(shape, n=4)
+    served, during = [], 0
+    while len(served) < 4 or not (f2.done() and f4.done()):
+        i = len(served) % 8
+        busy = not (f2.done() and f4.done())
+        served.append((i, srv.infer(xs[i])))
+        during += busy
+    f2.result(timeout=600), f4.result(timeout=600)
+    ref1 = eager_out(srv.plan_for(shape), xs, 1)
+    for i, a in served:
+        same_bits(a, ref1[i], f"infer during prefetch, request {i}")
+        agree({"prob": a["prob"]}, {"prob": sum2d_prob[i]},
+              f"infer during prefetch vs SUM2D, request {i}")
+    for n in (2, 4):
+        check_capture(srv, n, f"prefetched batch {n}")
+        held(srv, srv.infer_batch(list(xs[:n])), list(range(n)), n,
+             f"prefetched batch {n}")
+    print(f"  prefetch of batch 2 and 4 on the worker pool while the main "
+          f"thread served {len(served)} requests at batch 1 ({during} "
+          f"while a capture ran): every answer correct")
+
+    # ---- times: jit=True against a jit=False server, in turns ----
+    esrv = server(jit=False, lru_capacity=4)
+    reqs = {"infer, batch 1": lambda s: s.infer(xs[0]),
+            "infer_batch, batch 8": lambda s: s.infer_batch(list(xs))}
+    for fn in reqs.values():
+        for s in (srv, esrv):
+            fn(s)
+    held(esrv, [esrv.infer(xs[0])], [0], 1, "jit=False server")
+    lat = {(w, j): [] for w in reqs for j in ("jit=True", "jit=False")}
+    for rep in range(SERVE_REPS):
+        for what, fn in reqs.items():
+            order = ((srv, "jit=True"), (esrv, "jit=False"))
+            for s, j in (order if rep % 2 == 0 else order[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(s)
+                lat[(what, j)].append(time.perf_counter() - t0)
+    card = gpu_line()
+    for (what, j), samples in lat.items():
+        print(f"  host clock per request, {what}, {j}: "
+              f"{percentiles(samples)} [{card}]")
+    for j, s in (("jit=True", srv), ("jit=False", esrv)):
+        ph = s.stats()["phases"]
+        print(f"  {j}: the server's execute phase (executable call, copy "
+              "back, finiteness guard) per bucket, p50 interpolated in the "
+              "registry's histogram buckets: " + ", ".join(
+                  f"{k[len('execute['):-1]} {v['p50'] * 1e3:.4f} ms"
+                  for k, v in sorted(ph.items())
+                  if k.startswith("execute[")))
+    wall, busy, _ = device_profile(torch, lambda: srv.infer(xs[0]))
+    print(f"  profile, one served infer at batch 1 (jit=True): wall "
+          f"{wall:.4f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} ms'} [{card}]")
+    x1 = torch.from_numpy(xs[0]).to(dev)
+    for what, cn in (("replayed graph", srv.compiled_for(shape)),
+                     ("eager walk", esrv.compiled_for(shape))):
+        wall, busy, top = device_profile(torch, lambda: cn(x1))
+        share = "not measured" if busy is None else \
+            f"{max(0.0, 1 - busy / wall):.4f}"
+        print(f"  profile, one batch-1 forward, {what}: wall {wall:.4f} ms, "
+              f"device busy "
+              f"{'not measured' if busy is None else f'{busy:.4f} ms'}, "
+              f"idle share {share} [{card}]")
+        for t, key in top[:5]:
+            print(f"    {t:9.4f} ms  {key[:90]}")
+        host = []
+        for _ in range(SERVE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cn(x1)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+        print(f"  one batch-1 forward, {what}, outside the server: device "
+              f"span {cuda_ms(torch, lambda: cn(x1)):.4f} ms per call (CUDA "
+              f"events over 20 queued calls), host clock to synchronize "
+              f"{percentiles(host)} [{card}]")
+    srv.close()
+    esrv.close()
+    cache.cleanup()
 
 
 def main() -> int:
@@ -908,9 +1168,13 @@ def main() -> int:
     from repro_torch.core.primitives import registry
     from repro_torch.core.selection import (select_fixed, select_pbqp,
                                             select_sum2d)
-    from repro_torch.kernels import kernel_libs
+    from repro_torch.kernels import expected_launches, kernel_libs
     from repro_torch.kernels.common import (build_all, launch_counts,
                                             reset_launch_counts, true_f32)
+
+    # phases 3-7 run the eager walk: one host dispatch per operator, the
+    # paper's additive per-layer costs; phase 8 serves captured graphs
+    eager_plan = functools.partial(compile_plan, jit=False)
 
     # ---- 1. environment + build ----
     t_start = time.perf_counter()
@@ -972,22 +1236,22 @@ def main() -> int:
         print(f"  {node.id:6s} {node.scn.key():34s} -> "
               f"{ch.primitive.name} [{ch.l_in}->{ch.l_out}]")
     base_sel = select_sum2d(net, cost)
-    opt, base = compile_plan(sel, params), compile_plan(base_sel, params)
-    opt8 = compile_plan(sel, params, batch=8)
-    base8 = compile_plan(base_sel, params, batch=8)
+    opt, base = eager_plan(sel, params), eager_plan(base_sel, params)
+    opt8 = eager_plan(sel, params, batch=8)
+    base8 = eager_plan(base_sel, params, batch=8)
     x1, x8 = (torch.from_numpy(a).to(opt.device) for a in (xs[0], xs))
     out = to_np(run_path("pbqp_alexnet_b1", opt, x1)["prob"])
     check(out.shape == (1000, 1, 1) and abs(out.sum() - 1.0) < 1e-3,
           f"AlexNet output {out.shape} sums to {out.sum()}")
     run_path("pbqp_alexnet_b8", opt8, x8)
     t_ = taps(net)
-    base_t = compile_plan(base_sel, params, batch=8, outputs=t_)(x8)
-    opt_t = compile_plan(sel, params, batch=8, outputs=t_)(x8)
+    base_t = eager_plan(base_sel, params, batch=8, outputs=t_)(x8)
+    opt_t = eager_plan(sel, params, batch=8, outputs=t_)(x8)
     agree(opt_t, base_t, "PBQP vs SUM2D, batch 8")
-    agree(compile_plan(sel, params, outputs=t_)(x1),
+    agree(eager_plan(sel, params, outputs=t_)(x1),
           {k: v[0] for k, v in base_t.items()}, "PBQP vs SUM2D, batch 1")
-    agree(compile_plan(sel, params, outputs=t_)(x1),
-          compile_plan(sel, params, device="cpu", outputs=t_)(xs[0]),
+    agree(eager_plan(sel, params, outputs=t_)(x1),
+          eager_plan(sel, params, device="cpu", outputs=t_)(xs[0]),
           "PBQP on the card vs the port's CPU path, batch 1")
     print(f"  PBQP agrees with SUM2D at batch 1 and 8 and with the CPU "
           f"path at {len(t_)} outputs ({', '.join(t_[-2:])} and every "
@@ -1028,25 +1292,25 @@ def main() -> int:
                 if prim.supports(nd.scn)}
         check(bool(pick), f"{prim.name} supports no conv of {n_.name}")
         if n_.name not in sum2d_outs:
-            sum2d_outs[n_.name] = compile_plan(
+            sum2d_outs[n_.name] = eager_plan(
                 select_sum2d(n_, cost), p_, batch=2, outputs=taps(n_))(x_)
         want = sum2d_outs[n_.name]
         psel = select_fixed(n_, cost, pick, f"pinned_{prim.name}")
         run_path(f"pinned_{prim.name}_b2",
-                 compile_plan(psel, p_, batch=2), x_)
-        run_path(f"pinned_{prim.name}_b1", compile_plan(psel, p_), x_[0])
-        agree(compile_plan(psel, p_, batch=2, outputs=taps(n_))(x_), want,
+                 eager_plan(psel, p_, batch=2), x_)
+        run_path(f"pinned_{prim.name}_b1", eager_plan(psel, p_), x_[0])
+        agree(eager_plan(psel, p_, batch=2, outputs=taps(n_))(x_), want,
               f"{prim.name} pinned on {n_.name}, batch 2")
-        agree(compile_plan(psel, p_, outputs=taps(n_))(x_[0]),
+        agree(eager_plan(psel, p_, outputs=taps(n_))(x_[0]),
               {k: v[0] for k, v in want.items()},
               f"{prim.name} pinned on {n_.name}, batch 1")
         print(f"  {prim.name:22s} on {len(pick):2d} convs of {n_.name}: "
               f"agrees with SUM2D at batch 2 and 1")
     # ---- 5. fused selection on GoogLeNet ----
     fsel = select_pbqp(gnet, cost, fuse=True)
-    run_path("fused_pbqp_googlenet_b2", compile_plan(fsel, gparams, batch=2),
+    run_path("fused_pbqp_googlenet_b2", eager_plan(fsel, gparams, batch=2),
              gxs)
-    agree(compile_plan(fsel, gparams, batch=2, outputs=taps(gnet))(gxs),
+    agree(eager_plan(fsel, gparams, batch=2, outputs=taps(gnet))(gxs),
           sum2d_outs[gnet.name], "GoogLeNet fused PBQP vs SUM2D")
     print(f"== fused PBQP on {gnet.name}: {len(fsel.fusions)} fused edges, "
           f"{len(fsel.conversions)} conversions, agrees with SUM2D ==")
@@ -1058,8 +1322,8 @@ def main() -> int:
                                  reps=1, min_time=1e-3)
         psel = select_pbqp(net, prof)
         wall = time.perf_counter() - t0
-    run_path("profiled_pbqp_alexnet_b1", compile_plan(psel, params), x1)
-    agree(compile_plan(psel, params, outputs=t_)(x1),
+    run_path("profiled_pbqp_alexnet_b1", eager_plan(psel, params), x1)
+    agree(eager_plan(psel, params, outputs=t_)(x1),
           {k: v[0] for k, v in base_t.items()}, "profiled PBQP vs SUM2D")
     print(f"== profiled selection on {net.name}: {wall:.2f} s wall, "
           f"predicted {psel.predicted_cost * 1e3:.4f} ms ==")
@@ -1077,6 +1341,10 @@ def main() -> int:
         {1: {k: v[0] for k, v in base_t.items()}, 8: base_t}, t_,
         {"H100_SPEC PBQP, batch 1": (1, opt), "SUM2D, batch 1": (1, base),
          "H100_SPEC PBQP, batch 8": (8, opt8), "SUM2D, batch 8": (8, base8)})
+    # ---- 8. the conv PlanServer, serving captured CUDA graphs ----
+    print("== serving: PlanServer(alexnet(1.0), H100_SPEC with kernels, "
+          "exact buckets), jit=True on the card ==")
+    serving_phase(torch, dev, xs, base_t["prob"], paths)
     for r in reports:
         check(not r.on_path or any(c.get(r.name) for c in paths.values()),
               f"kernel {r.name} never launched on a path")

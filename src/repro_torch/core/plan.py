@@ -4,14 +4,21 @@ generator which emitted calls to primitive operations".
 Port of the single-device part of the reference's ``core/plan.py``.  The
 executable walks the DAG in topological order, calling the selected
 primitive per conv layer, the op function per op node and the explicit
-layout-conversion chains the legalizer inserted on illegal edges.  It
-runs eagerly: there is no ``jax.jit`` to stage, no optimization barrier
-to place (eager calls never fuse across layers), and a batch is a
-leading axis written out through every primitive and kernel instead of
-a ``vmap``.  Mesh-sharded executables are the ROADMAP's slice G.
+layout-conversion chains the legalizer inserted on illegal edges.  A
+batch is a leading axis written out through every primitive and kernel
+instead of a ``vmap``, and eager calls never fuse across layers, so
+there is no optimization barrier to place.
+
+The reference stages the whole walk as one ``jax.jit`` executable.  Its
+counterpart here is a CUDA graph: ``compile_plan(jit=True)`` on a card
+captures the forward on its first call (:class:`CapturedForward`) and
+replays it after, so one launch replaces the host's dispatch of every
+operator.  ``jit=False`` is the eager walk, whose per-layer costs add up
+as in the paper.  Mesh-sharded executables are the ROADMAP's slice G.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -19,7 +26,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels.common import resolve_device, true_f32
+from ..kernels.common import (add_launches, recording_launches,
+                              resolve_device, true_f32)
 from ..obs.metrics import default_registry
 from ..obs.trace import get_tracer
 from .graph import Net
@@ -27,8 +35,8 @@ from .layouts import LAYOUT_BY_NAME
 from .primitives import convert_layout
 from .selection import SelectionResult
 
-__all__ = ["compile_plan", "CompiledNet", "measure", "compile_count",
-           "params_from_numpy"]
+__all__ = ["compile_plan", "CompiledNet", "CapturedForward", "measure",
+           "compile_count", "params_from_numpy"]
 
 #: process-wide count of compile_plan() calls (the obs registry's locked
 #: counter, as in the reference)
@@ -61,6 +69,78 @@ def params_from_numpy(raw_params: Dict[str, Dict[str, np.ndarray]],
             for nid, p in raw_params.items()}
 
 
+#: one capture at a time in the process, held by whoever builds a
+#: :class:`CapturedForward`: a capture must see no other thread's
+_CAPTURE_LOCK = threading.Lock()
+
+
+class CapturedForward:
+    """One executable's forward as a CUDA graph, and the stream it runs on.
+
+    Built on the executable's first call (``compile_plan(jit=True)`` on a
+    card): one eager forward on the graph's own side stream, which does
+    the host's one-time work (building and loading the kernel libraries,
+    uploading the Winograd transform matrices, the kernels' shared-memory
+    attributes, cuBLAS's workspace), then the capture of a second forward
+    into a static input and static outputs (``forward`` runs in
+    ``true_f32``, so the captured cuBLAS and cuDNN calls keep TF32 off).
+    Its constructor runs under ``_CAPTURE_LOCK``, and the capture runs with
+    ``capture_error_mode="thread_local"``, so a server's worker can
+    capture while the caller replays another executable.  A capture that
+    fails raises: nothing runs eagerly in its place.
+
+    :meth:`run` copies the input into the static buffer, replays the
+    graph and returns clones of the static outputs (a later call does not
+    overwrite them), all on the graph's stream under a lock, with the
+    caller's stream ordered before and after.  The launch counts see the
+    warm-up's launches and each replay's, never the capture's: a capture
+    records kernels and launches none.  The graph reads the
+    executable's packed parameters at the addresses they had at capture.
+    """
+
+    def __init__(self, forward: Callable, x: torch.Tensor,
+                 device: torch.device) -> None:
+        self.stream = torch.cuda.Stream(device)
+        self.graph = torch.cuda.CUDAGraph()
+        self._lock = threading.Lock()
+        self.stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self.stream):
+            self.static_in = torch.empty(x.shape, dtype=x.dtype,
+                                         device=device)
+            self.static_in.copy_(x)
+            forward(self.static_in)
+        with recording_launches() as rec:
+            with torch.cuda.graph(self.graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                self.static_out = forward(self.static_in)
+        #: kernel launches the capture recorded, which it did not count:
+        #: each replay launches them, and :meth:`run` counts them there
+        self.launches: Dict[str, int] = dict(rec)
+        #: replays so far
+        self.replays = 0
+
+    def run(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if x.shape != self.static_in.shape:
+            raise ValueError(f"the graph was captured for input "
+                             f"{tuple(self.static_in.shape)}, got "
+                             f"{tuple(x.shape)}")
+        caller = torch.cuda.current_stream(self.static_in.device)
+        with self._lock:
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                self.static_in.copy_(x)
+                self.graph.replay()
+                out = {k: v.clone() for k, v in self.static_out.items()}
+                self.replays += 1
+            add_launches(self.launches)
+            caller.wait_stream(self.stream)
+        if x.is_cuda:
+            x.record_stream(self.stream)
+        for v in out.values():
+            v.record_stream(caller)
+        return out
+
+
 @dataclass
 class CompiledNet:
     sel: SelectionResult
@@ -76,14 +156,49 @@ class CompiledNet:
     fused_edges: int = 0
     #: per-conv-node maker callables (fusion-resolved wire layouts)
     makers: Optional[Dict[str, Callable]] = None
+    #: capture the forward as a CUDA graph on the first call (a card only)
+    jit: bool = False
+    #: the graph, once captured
+    graph: Optional[CapturedForward] = None
+    #: the reference's mesh, read by the server and the reliability
+    #: layer: always None, a single-device executable (mesh modes are
+    #: slice G)
+    mesh: Optional[Any] = None
 
-    def __call__(self, x):
-        x = _tensor(x, self.device)
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The eager walk on a device tensor (TF32 off)."""
         with true_f32():
             if self.batch == 1:
                 out = self.fn(x.unsqueeze(0), self.params)
                 return {k: v.squeeze(0) for k, v in out.items()}
             return self.fn(x, self.params)
+
+    def __call__(self, x):
+        if not (self.jit and self.device.type == "cuda"):
+            return self.forward(_tensor(x, self.device))
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        if self.graph is None:
+            with _CAPTURE_LOCK:
+                if self.graph is None:
+                    self.graph = CapturedForward(self.forward, x,
+                                                 self.device)
+        return self.graph.run(x)
+
+    @property
+    def capture_launches(self) -> Optional[Dict[str, int]]:
+        """Kernel launches of one replay, as the capture recorded them;
+        None before the capture (or without one)."""
+        return None if self.graph is None else dict(self.graph.launches)
+
+    def synchronize(self) -> None:
+        """Wait for the work this thread queued for the executable: its
+        graph's stream, or the current stream for the eager walk (never a
+        device-wide synchronisation, which would break another thread's
+        capture)."""
+        if self.device.type == "cuda":
+            (self.graph.stream if self.graph is not None else
+             torch.cuda.current_stream(self.device)).synchronize()
 
 
 def compile_plan(sel: SelectionResult, raw_params: Dict[str, Dict],
@@ -99,10 +214,15 @@ def compile_plan(sel: SelectionResult, raw_params: Dict[str, Dict],
     then moved to ``device`` — the card unless the caller asks for the
     CPU (with no GPU present this raises).
 
-    ``jit`` and ``fuse_across_layers`` are accepted for the reference's
-    signature and have no effect: the executable runs eagerly, and
-    eager calls never fuse across layers, so per-layer costs compose
-    additively as in the paper's library-call system.
+    ``jit=True`` on a card stages the forward as one CUDA graph, the
+    counterpart of the reference's ``jax.jit``: the first call warms up
+    and captures (:class:`CapturedForward`), every call after replays
+    it, and the outputs are the eager walk's bits.  On the CPU ``jit``
+    has no effect.  ``jit=False`` is the eager walk: one host dispatch
+    per operator, so per-layer costs compose additively as in the
+    paper's library-call system.  ``fuse_across_layers`` is accepted for
+    the reference's signature and has no effect: eager calls never fuse
+    across layers, and a graph replays the same kernels.
 
     ``batch > 1`` builds a batched executable: input (N, C, H, W), every
     output with a leading N axis, one call per primitive for the whole
@@ -177,7 +297,7 @@ def compile_plan(sel: SelectionResult, raw_params: Dict[str, Dict],
     cnet = CompiledNet(sel, _image_walker(sel, net, makers, out_layouts),
                        packed, dev,
                        build_s=time.perf_counter() - t0, batch=batch,
-                       fused_edges=len(fusions), makers=makers)
+                       fused_edges=len(fusions), makers=makers, jit=jit)
     get_tracer().emit("compile", t0, time.perf_counter(),
                       nodes=len(net.order), batch=batch,
                       fused_edges=cnet.fused_edges, mesh_mode="",

@@ -23,7 +23,27 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["register_pallas_primitives", "kernel_libs"]
+__all__ = ["register_pallas_primitives", "kernel_libs", "LAUNCH_COUNTER_OF",
+           "expected_launches"]
+
+#: the launch counter (``common.count_launch``) behind each kernel
+#: primitive: one launch per conv the primitive runs
+LAUNCH_COUNTER_OF = {"pallas_direct_hwc": "conv_direct",
+                     "pallas_im2col_chw": "conv_im2col",
+                     "pallas_wino_f2x3_chw": "winograd_gemm",
+                     "pallas_wino_f4x3_chw": "winograd_gemm",
+                     "pallas_pw_gemm_chw": "matmul"}
+
+
+def expected_launches(sel):
+    """The launches of one forward of selection ``sel``'s plan: one per
+    conv that it gives to each kernel, by launch counter."""
+    want = {}
+    for node in sel.net.conv_nodes():
+        k = LAUNCH_COUNTER_OF.get(sel.choices[node.id].primitive.name)
+        if k:
+            want[k] = want.get(k, 0) + 1
+    return want
 
 
 def kernel_libs():

@@ -32,9 +32,10 @@ from typing import Dict, Iterable, List, Optional, Sequence
 import torch
 
 __all__ = ["cdiv", "on_cpu", "require_cuda", "true_f32", "resolve_device",
-           "KernelLib", "build_all", "count_launch", "launch_counts",
-           "reset_launch_counts", "ptxas_usage", "CSRC_DIR", "BUILD_DIR",
-           "NVCC_FLAGS"]
+           "KernelLib", "build_all", "count_launch", "add_launches",
+           "launch_counts",
+           "reset_launch_counts", "recording_launches", "ptxas_usage",
+           "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 #: ``<checkout>/build/repro_torch`` — git-ignored, made at first build
@@ -85,6 +86,14 @@ def require_cuda(*tensors: Optional[torch.Tensor]) -> None:
                            f"is sm_{cap[0]}{cap[1]}")
 
 
+#: the threads inside :func:`true_f32` and the flags it found on entry:
+#: the flags are process-wide, so the first thread in turns TF32 off and
+#: the last one out restores them
+_TF32_LOCK = threading.Lock()
+_TF32_DEPTH = 0
+_TF32_SAVED = (False, False)
+
+
 @contextlib.contextmanager
 def true_f32():
     """TF32 off for cuBLAS and cuDNN inside the block, restored after.
@@ -92,17 +101,27 @@ def true_f32():
     The reference accumulates convolutions and GEMMs in true f32; TF32
     keeps about 3 decimal digits, which would put the library primitives
     outside the parity tolerances.  Scoped, so that other PyTorch code in
-    the process keeps its own setting.
+    the process keeps its own setting.  The flags are process-wide, so
+    the scope is counted across threads: TF32 stays off until every
+    thread inside has left (a server's worker capturing one executable
+    while the caller runs another must not switch it back on under it).
     """
-    mm, dnn = (torch.backends.cuda.matmul.allow_tf32,
-               torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    global _TF32_DEPTH, _TF32_SAVED
+    with _TF32_LOCK:
+        if _TF32_DEPTH == 0:
+            _TF32_SAVED = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _TF32_DEPTH += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = dnn
+        with _TF32_LOCK:
+            _TF32_DEPTH -= 1
+            if _TF32_DEPTH == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _TF32_SAVED
 
 
 # ----------------------------------------------------------------------
@@ -110,11 +129,39 @@ def true_f32():
 # ----------------------------------------------------------------------
 _COUNT_LOCK = threading.Lock()
 _LAUNCHES: Dict[str, int] = {}
+#: per thread: the counts of an open :func:`recording_launches` block
+_RECORDING = threading.local()
 
 
 def count_launch(name: str) -> None:
+    rec = getattr(_RECORDING, "counts", None)
+    if rec is not None:
+        # recorded into a CUDA graph, not launched: each replay counts it
+        rec[name] = rec.get(name, 0) + 1
+        return
+    add_launches({name: 1})
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the process's launch counts (a graph's replay
+    adds the launches its capture recorded)."""
     with _COUNT_LOCK:
-        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+        for name, n in counts.items():
+            _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside the block, this thread's launches go into the dict it
+    yields instead of the process's counts: a CUDA graph's capture
+    records its kernels there and launches none of them.  Other threads
+    count as before."""
+    prev = getattr(_RECORDING, "counts", None)
+    _RECORDING.counts = rec = {}
+    try:
+        yield rec
+    finally:
+        _RECORDING.counts = prev
 
 
 def launch_counts() -> Dict[str, int]:

@@ -17,13 +17,19 @@ The whole convolutions (the code around the kernels: padding, patch
 gathers, Winograd transforms, crops) are held to the same 1e-3 against
 an f64 ``F.conv2d``.  The GEMM and the direct conv sum their cluster's
 K splits in a fixed order, so a call repeated gives the same bits.
+
+``compile_plan(jit=True)`` captures AlexNet's forward as a CUDA graph:
+its outputs must be the eager walk's bits, at batch 1 and 8, and its
+capture must count one launch per kernel conv; the ``PlanServer``
+serving such graphs must answer with the eager plan's bits while its
+worker pool captures other buckets, and release a graph it evicts.
 """
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import common
+from repro_torch.kernels import common, expected_launches
 from repro_torch.kernels.conv_direct import (conv_direct, conv_direct_ref,
                                              conv_plan)
 from repro_torch.kernels.conv_im2col import conv_im2col
@@ -467,3 +473,229 @@ torch.cuda.synchronize()
         kw = dict(stride=1, pad=1)
         self._close(conv_direct(x, w, b, **kw),
                     conv_direct_ref(x, w, b, **kw), 1e-3)
+
+
+# ----------------------------------------------------------------------
+# compile_plan(jit=True): the forward captured as a CUDA graph, and the
+# conv PlanServer serving such graphs
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def alexnet_plans():
+    """AlexNet at full width under the H100 model with the kernels priced:
+    its PBQP plan (the Winograd kernel on conv3-conv5) and weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (sm_90a)")
+    from repro_torch.convnets import alexnet
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.core.selection import select_pbqp
+    net = alexnet(1.0)
+    sel = select_pbqp(net, AnalyticCostModel(H100_SPEC, include_kernels=True))
+    xs = np.random.default_rng(21).normal(
+        size=(8,) + net.nodes["data"].out_shape).astype(np.float32)
+    return sel, net.init_params(0), xs
+
+
+@pytest.mark.gpu
+class TestCapturedForward:
+    @pytest.mark.parametrize("batch", [1, 8])
+    def test_graph_equals_eager_and_counts_at_capture(self, cuda,
+                                                      alexnet_plans, batch):
+        from repro_torch.core.plan import compile_plan
+        sel, params, xs = alexnet_plans
+        x = xs[0] if batch == 1 else xs
+        eager = compile_plan(sel, params, batch=batch, jit=False)
+        graph = compile_plan(sel, params, batch=batch)
+        assert graph.jit and graph.graph is None
+        want = eager(x)
+        once = expected_launches(sel)
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        got = graph(x)
+        # the warm-up and the first replay launch; the capture only records
+        assert common.launch_counts() == {k: 2 * v for k, v in once.items()}
+        assert graph.capture_launches == once
+        assert graph.capture_launches["winograd_gemm"] == 3
+        for k in want:
+            assert torch.equal(got[k], want[k])
+        common.reset_launch_counts()
+        again = graph(torch.from_numpy(x).to(cuda))
+        assert common.launch_counts() == once  # each replay counts
+        assert graph.graph.replays == 2
+        for k in want:
+            assert torch.equal(again[k], want[k])
+
+    def test_replay_follows_the_input_and_outputs_are_not_aliased(
+            self, cuda, alexnet_plans):
+        from repro_torch.core.plan import compile_plan
+        sel, params, xs = alexnet_plans
+        eager = compile_plan(sel, params, jit=False)
+        graph = compile_plan(sel, params)
+        first = graph(xs[1])
+        second = graph(xs[2])
+        assert first["prob"].data_ptr() != second["prob"].data_ptr()
+        assert torch.equal(first["prob"], eager(xs[1])["prob"])
+        assert torch.equal(second["prob"], eager(xs[2])["prob"])
+        assert not torch.equal(first["prob"], second["prob"])
+
+    def test_a_capture_that_fails_raises(self, cuda, alexnet_plans):
+        """No quiet fallback: a forward that cannot be captured (here, a
+        host synchronisation inside it) raises, and nothing is kept."""
+        from repro_torch.core.plan import compile_plan
+        sel, params, xs = alexnet_plans
+        graph = compile_plan(sel, params)
+        walk = graph.fn
+
+        def syncing(x, p):
+            out = walk(x, p)
+            float(out["prob"].sum())
+            return out
+
+        graph.fn = syncing
+        with pytest.raises(RuntimeError):
+            graph(xs[0])
+        assert graph.graph is None
+        graph.fn = walk
+        graph(xs[0])
+        with pytest.raises(ValueError, match="captured for input"):
+            graph(xs[:2])  # (N, C, H, W) into a batch-1 graph
+
+    def test_jit_has_no_effect_on_the_cpu(self, cuda, alexnet_plans):
+        from repro_torch.core.plan import compile_plan
+        sel, params, xs = alexnet_plans
+        cnet = compile_plan(sel, params, device="cpu")
+        cnet(xs[0])
+        assert cnet.graph is None and cnet.capture_launches is None
+
+
+def _tower_server(cuda, **kw):
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.serving import BucketPolicy, PlanServer, conv_stack
+    return PlanServer(lambda s: conv_stack(s, depth=2, width=64),
+                      AnalyticCostModel(H100_SPEC, include_kernels=True),
+                      policy=BucketPolicy(min_hw=8, max_hw=64, max_n=8),
+                      **kw)
+
+
+@pytest.mark.gpu
+class TestServingGraphs:
+    def test_concurrent_prefetch_and_infer(self, cuda, alexnet_plans):
+        """Two buckets captured on the worker pool while the caller serves
+        a third: every answer holds the eager plan's bits."""
+        from repro_torch.convnets import alexnet
+        from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+        from repro_torch.core.plan import compile_plan
+        from repro_torch.serving import BucketPolicy, PlanServer
+        _, params, xs = alexnet_plans
+        shape = xs.shape[1:]
+        srv = PlanServer(lambda s: alexnet(1.0),
+                         AnalyticCostModel(H100_SPEC, include_kernels=True),
+                         policy=BucketPolicy(spatial="exact",
+                                             channel="exact"))
+        try:
+            srv.infer(xs[0])
+            f2, f4 = srv.prefetch(shape, n=2), srv.prefetch(shape, n=4)
+            served = []
+            while len(served) < 4 or not (f2.done() and f4.done()):
+                served.append(srv.infer(xs[len(served) % 8]))
+            f2.result(timeout=600)
+            f4.result(timeout=600)
+            eager = compile_plan(srv.plan_for(shape), params, jit=False)
+            want = [eager(x)["prob"].cpu().numpy() for x in xs]
+            for i, out in enumerate(served):
+                assert np.array_equal(out["prob"], want[i % 8])
+            for n in (2, 4):
+                cnet = srv.compiled_for(shape, n)
+                assert cnet.capture_launches == expected_launches(cnet.sel)
+                e = compile_plan(cnet.sel, params, batch=n, jit=False)
+                want_n = e(xs[:n])["prob"].cpu().numpy()
+                got = srv.infer_batch(list(xs[:n]))
+                for i in range(n):
+                    assert np.array_equal(got[i]["prob"], want_n[i])
+        finally:
+            srv.close()
+
+    @pytest.mark.parametrize("jit", [True, False])
+    def test_a_kernel_that_raises_reaches_the_caller(self, cuda,
+                                                     alexnet_plans,
+                                                     monkeypatch, jit):
+        """No fallback hides the card: a launcher's error is neither
+        retried, demoted nor quarantined onto library routines.  With
+        ``jit`` it fails the build (its first launch is the warm-up);
+        without, it fails a request after the build's warm call."""
+        from repro_torch.convnets import alexnet
+        from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+        from repro_torch.kernels.winograd_gemm import ops
+        from repro_torch.serving import BucketPolicy, PlanServer
+        _, _, xs = alexnet_plans
+        launch = ops.winograd_bgemm_cuda
+        calls = []
+
+        def failing(u, v):
+            calls.append(1)
+            if len(calls) > (0 if jit else 3):  # K3 on conv3-conv5
+                raise RuntimeError("winograd_bgemm: launch failed")
+            return launch(u, v)
+
+        monkeypatch.setattr(ops, "winograd_bgemm_cuda", failing)
+        srv = PlanServer(lambda s: alexnet(1.0),
+                         AnalyticCostModel(H100_SPEC, include_kernels=True),
+                         policy=BucketPolicy(spatial="exact",
+                                             channel="exact"),
+                         jit=jit, compile_retries=2)
+        try:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                srv.infer(xs[0])
+            st = srv.stats()
+            assert st["compiles"] == (0 if jit else 1)
+            for k in ("compile_retries", "compile_fallbacks",
+                      "kernel_failures", "quarantines"):
+                assert st[k] == 0, (k, st)
+            assert len(calls) == (1 if jit else 4)
+        finally:
+            srv.close()
+
+    def test_diagnose_reraises_a_crash_on_the_card(self, cuda,
+                                                   alexnet_plans):
+        """A walk that raises on the card is the port's failure, not a
+        kernel to blame (the CPU blames the conv, as the reference)."""
+        from repro_torch.core.plan import compile_plan
+        from repro_torch.reliability import diagnose_nonfinite
+        sel, params, xs = alexnet_plans
+        cnet = compile_plan(sel, params, jit=False)
+
+        def broken(x, packed):
+            raise RuntimeError("conv3: launch failed")
+
+        cnet.makers["conv3"] = broken
+        with pytest.raises(RuntimeError, match="launch failed"):
+            diagnose_nonfinite(cnet, xs[0])
+
+    def test_lru_eviction_releases_the_graph(self, cuda):
+        import gc
+        import weakref
+        """Evicting an executable drops its graph (and the graph's private
+        pool, which holds the 64 x 64 bucket's activations) and its packed
+        weights: the 8 x 8 bucket that replaces it holds less memory."""
+        srv = _tower_server(cuda, lru_capacity=1)
+        rng = np.random.default_rng(22)
+        a = rng.normal(size=(32, 64, 64)).astype(np.float32)
+        b = rng.normal(size=(32, 8, 8)).astype(np.float32)
+        try:
+            srv.infer(a)
+            cnet = srv.compiled_for(a.shape)
+            assert cnet.graph is not None
+            graph = weakref.ref(cnet.graph)
+            weight = weakref.ref(next(iter(next(iter(
+                cnet.params.values())).values())))
+            del cnet
+            gc.collect()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            srv.infer(b)  # evicts a's executable
+            gc.collect()
+            torch.cuda.synchronize()
+            assert srv.stats()["exec_evictions"] == 1
+            assert graph() is None and weight() is None
+            assert torch.cuda.memory_allocated() < held
+        finally:
+            srv.close()

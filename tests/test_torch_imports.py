@@ -20,7 +20,10 @@ VERBATIM = ["core/scenario.py", "core/layouts.py",
             "core/choice_space.py", "core/selection.py", "obs/trace.py",
             "obs/metrics.py", "convnets/alexnet.py", "convnets/vgg.py",
             "convnets/googlenet.py", "convnets/__init__.py",
-            "serving/bucketing.py"]
+            "serving/bucketing.py", "serving/metrics.py",
+            "serving/towers.py", "serving/plan_cache.py",
+            "reliability/errors.py", "reliability/faults.py",
+            "reliability/fallback.py", "reliability/__init__.py"]
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -73,7 +76,10 @@ def test_fresh_import_loads_no_jax_and_no_reference():
                 "repro_torch.kernels.matmul.bench",
                 "repro_torch.kernels.conv_direct.bench",
                 "repro_torch.kernels.conv_im2col.bench",
-                "repro_torch.kernels.winograd_gemm.bench"}
+                "repro_torch.kernels.winograd_gemm.bench",
+                "repro_torch.serving.server", "repro_torch.serving.plan_cache",
+                "repro_torch.reliability.quarantine",
+                "repro_torch.reliability.fallback"}
     assert expected <= set(rep["modules"])
 
 
@@ -100,6 +106,7 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
     from repro_torch.core.costs import AnalyticCostModel, ProfiledCostModel
     from repro_torch.core.plan import compile_plan, params_from_numpy
     from repro_torch.core.selection import select_sum2d
+    from repro_torch.serving import PlanServer
     net = alexnet(0.3)
     sel = select_sum2d(net, AnalyticCostModel())
     params = net.init_params(0)
@@ -109,8 +116,14 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
         params_from_numpy(params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ProfiledCostModel(str(tmp_path / "p.json"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PlanServer(lambda s: alexnet(0.3), AnalyticCostModel())
     cnet = compile_plan(sel, params, device="cpu")
     assert cnet.device.type == "cpu"
+    srv = PlanServer(lambda s: alexnet(0.3), AnalyticCostModel(),
+                     device="cpu")
+    assert srv.device.type == "cpu"
+    srv.close()
 
 
 def test_mesh_executables_are_not_ported_yet():

@@ -317,6 +317,55 @@ class TestDispatch:
             torch.backends.cuda.matmul.allow_tf32 = mm
             torch.backends.cudnn.allow_tf32 = dnn
 
+    def test_true_f32_holds_while_any_thread_is_inside(self):
+        """A server's worker captures in ``true_f32`` while the caller
+        runs another executable in it: the first one out must not turn
+        TF32 back on under the other (the flags are process-wide)."""
+        import threading
+        mm = torch.backends.cuda.matmul.allow_tf32
+        dnn = torch.backends.cudnn.allow_tf32
+        inside, leave, seen = threading.Event(), threading.Event(), []
+
+        def worker():
+            with common.true_f32():
+                inside.set()
+                leave.wait(10)
+                seen.append((torch.backends.cuda.matmul.allow_tf32,
+                             torch.backends.cudnn.allow_tf32))
+
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            t = threading.Thread(target=worker)
+            with common.true_f32():
+                t.start()
+                assert inside.wait(10)
+            leave.set()  # the caller left first; the worker reads now
+            t.join(10)
+            assert not t.is_alive() and seen == [(False, False)]
+            assert torch.backends.cuda.matmul.allow_tf32
+            assert torch.backends.cudnn.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = mm
+            torch.backends.cudnn.allow_tf32 = dnn
+
+    def test_recording_launches_counts_this_thread_only(self):
+        import threading
+        common.reset_launch_counts()
+        with common.recording_launches() as rec:
+            common.count_launch("matmul")
+            t = threading.Thread(target=common.count_launch,
+                                 args=("conv_direct",))
+            t.start()
+            t.join(10)
+        common.count_launch("matmul")
+        # recorded, not counted, inside the block; the other thread counts
+        assert rec == {"matmul": 1}
+        assert common.launch_counts() == {"matmul": 1, "conv_direct": 1}
+        common.add_launches(rec)
+        assert common.launch_counts() == {"matmul": 2, "conv_direct": 1}
+        common.reset_launch_counts()
+
     def test_resolve_device(self):
         assert common.resolve_device("cpu").type == "cpu"
         if not torch.cuda.is_available():

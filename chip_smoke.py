@@ -54,7 +54,27 @@ checkout of the repository.  Phases, each of which raises on failure:
    compile retried, and the batch-2 and batch-4 buckets captured on the
    worker pool while the main thread serves; then per-request host
    latency (p50, p95) of ``jit=True`` against a ``jit=False`` server, in
-   turns, and the profiler's device-busy time of one replayed forward.
+   turns, and the profiler's device-busy time of one replayed forward;
+9. tune: every valid configuration of the six kernels' launch spaces
+   (``kernels/*/space.py``: tile and cluster split count, flash
+   attention's query tile and KV split, the transpose's route) launched
+   once with its pinned plan, which the C entry must receive, against
+   its plain version; then ``python -m repro_torch.launch.tune`` (its
+   ``main``) times every variant over phase 7's AlexNet buckets and
+   ``autotune.tune`` resumes its profile with GoogLeNet's 1x1 buckets at
+   batch 1; per kernel the catalog's generated, surviving and pruned
+   counts, and per bucket the best variant against the planner's own
+   launch; the catalog installed, AlexNet solved at batch 1 and 8 on
+   phase 7's profile merged with the tune's, its plans (``jit=False``
+   and ``jit=True``) against SUM2D and timed beside phase 7's
+   calibrated plans; a ``PlanServer`` built after ``install()`` must
+   miss the plan-cache key one built before hit; uninstalled after;
+10. drift: ``obs.drift.recalibration_loop`` on AlexNet at batch 1 from a
+   copy of phase 7's profile (threshold 2, 4 instrumented runs per round,
+   at most 8 rounds, eager plans): every instrumented output must be its
+   round's eager walk's bits, every round's plan must agree with SUM2D,
+   and the profile's hash must change if and only if an entry was
+   written; ``converged`` is printed, not gated.
 
 Plans are compared at every conv's output, the pre-softmax logits and
 the probabilities, each within 1e-3 of the reference's largest
@@ -66,9 +86,12 @@ after, and must equal one launch per conv that its selection gave to
 each kernel (the batch runs on the kernels' grids).  So is each
 calibration kernel item: counts at 0, its benchmark function called
 once, counts read.  Phase 8's requests are one path: counts at 0 before
-the first request, read after the last, and they must equal two
-forwards' launches per executable built (its warm-up and its capture),
-since a replay counts nothing.  The last lines are
+the first request, read after the last, and they must equal each
+executable's warm-up and replays (a capture records its launches and
+counts none; each replay adds them).  Phase 9's tuning (the CLI's run and the
+resumed ``tune``) is one path, ``tune``, which must launch every kernel;
+its tuned plans are paths as phases 3-7's.  Phase 10's loop is one path,
+``drift``: (1 + runs) forwards' launches per round.  The last lines are
 a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -120,6 +143,18 @@ NET_TOL = 2e-3
 #: phase 8: timed requests per server and request kind (enough samples
 #: for a p95 resolved between the 15th and 16th largest)
 SERVE_REPS = 300
+#: phase 9: the tuner's buckets are phase 7's (AlexNet at batch 1 and 8,
+#: through the CLI), then GoogLeNet's 1x1 convs at batch 1 (the pointwise
+#: GEMM's variants: AlexNet has no 1x1 conv); each item is timed with the
+#: CLI's default discipline.  ``TUNE_BUDGET`` caps the new measurements
+#: of each of the two runs (None: every planned item)
+TUNE_SCALE, TUNE_MEASURE, TUNE_BUDGET = 1.0, "real", None
+#: phase 9: device timings per candidate launch (one call behind a sleep
+#: kernel, CUDA events), median of this many
+WINNER_REPS = 7
+#: phase 10: the recalibration loop's threshold (a ratio), instrumented
+#: runs per round and most rounds
+DRIFT_THRESHOLD, DRIFT_RUNS, DRIFT_ROUNDS = 2.0, 4, 8
 #: ~2 ms at the H100's 1.98 GHz boost clock: longer than the host takes
 #: to queue 20 single-kernel calls
 SLEEP_CYCLES = 4_000_000
@@ -892,6 +927,7 @@ def calibration_phase(torch, dev, out_dir, run_path, paths, net, params,
         print(f"  a profile stamped cpu:cpu:n1 is refused: {e}")
     else:
         check(False, "CalibratedCostModel took a CPU profile on the card")
+    return prof
 
 
 def same_bits(got, want, what):
@@ -1145,6 +1181,520 @@ def serving_phase(torch, dev, xs, sum2d_prob, paths):
     cache.cleanup()
 
 
+def tune_args():
+    """Phase 9's arguments of ``repro_torch.launch.tune`` (its catalog and
+    profile paths aside)."""
+    return (["--net", CALIB_NET, "--scale", str(TUNE_SCALE), "--batches",
+             *map(str, CALIB_BATCHES), "--measure", TUNE_MEASURE]
+            + ([] if TUNE_BUDGET is None else ["--budget", str(TUNE_BUDGET)]))
+
+
+class LaunchSpy:
+    """Records every C entry's arguments while active: the pinned tile
+    and split count (the query tile and KV split, the route) a wrapper
+    passed down are the launch the card ran."""
+
+    def __init__(self):
+        from repro_torch.kernels.common import KernelLib
+        self.cls, self.calls = KernelLib, []
+
+    def __enter__(self):
+        orig, calls = self.cls.call, self.calls
+
+        def call(lib, entry, *args):
+            calls.append((entry, args))
+            return orig(lib, entry, *args)
+        self.orig = orig
+        self.cls.call = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.call = self.orig
+
+    def launched(self, pos):
+        """The values at argument positions ``pos`` of the last call."""
+        _, args = self.calls[-1]
+        return tuple(args[i] for i in pos)
+
+
+def pinned_configs_phase(torch, dev, buckets):
+    """Every valid configuration of all six spaces, launched once with
+    its pinned plan at the first tuning bucket it applies to (batch 1
+    first), against the plain version: a registering space's variant
+    against its entry's plain version on the CPU, flash attention's
+    launches against its plain version on the card, the layout
+    transform's routes bit for bit."""
+    from repro_torch.autotune import spaces
+    from repro_torch.core.costs import MeasureCache
+    from repro_torch.core.layouts import LAYOUT_BY_NAME
+    from repro_torch.core.primitives import to_tensor
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    cache, plain = MeasureCache(), {}
+    order = sorted(buckets, key=lambda b: b.n)
+    #: where each C entry receives the pinned launch
+    gemm_pos = {"repro_conv_direct": (-5, -4)}
+    n_checked = {}
+    for kname, space in sorted(spaces().items()):
+        for cfg in space.configs():
+            if space.registers:
+                prim = space.make_primitive(cfg)
+                scn = next((b for b in order if prim.supports(b)), None)
+                check(scn is not None, f"{prim.name} supports no bucket")
+                entry = prim.name.split("@")[0]
+                w, b, x = cache.draws(scn)
+                lay = LAYOUT_BY_NAME[prim.l_in]
+                xm = lay.to_memory(x) if scn.n == 1 else \
+                    np.stack([lay.to_memory(xi) for xi in x])
+                packed = prim.prepare(scn, w.copy(), b.copy())
+                if (entry, scn) not in plain:
+                    cpu = {k: to_tensor(v) for k, v in packed.items()}
+                    plain[(entry, scn)] = prim.make(scn)(to_tensor(xm), cpu)
+                with LaunchSpy() as spy:
+                    got = prim.make(scn)(
+                        to_tensor(xm).to(dev),
+                        {k: to_tensor(v).to(dev) for k, v in packed.items()})
+                    torch.cuda.synchronize()
+                    pos = gemm_pos.get(spy.calls[-1][0], (-6, -5))
+                    launched = spy.launched(pos)
+                check(launched == (cfg["tile"], cfg["splits"]),
+                      f"{prim.name} at {scn.key()} launched tile and "
+                      f"splits {launched}")
+                want = plain[(entry, scn)]
+                err = float((got.cpu() - want).abs().max())
+                scale = float(want.abs().max())
+                check(bool(got.isfinite().all())
+                      and err <= TOL_F32 * scale,
+                      f"{prim.name} at {scn.key()}: max error {err:.3e} > "
+                      f"{TOL_F32} x {scale:.3e}")
+            else:
+                # a route that runs at no tuning bucket (K5's short
+                # columns: every bucket has H*W > 16) at a shape it runs
+                scn = next((b for b in order
+                            if space.benchmark(b, cfg, device=dev)),
+                           Scenario(c=64, h=4, w=4, stride=1, k=3, m=8))
+                fn, args = space.benchmark(scn, cfg, device=dev)()
+                with LaunchSpy() as spy:
+                    got = fn(*args)
+                    torch.cuda.synchronize()
+                    if kname == "flash_attention":
+                        launched = spy.launched((-3, -2))
+                        pin = (cfg["bq"], cfg["splits"])
+                    else:
+                        launched, pin = spy.launched((-2,)), (cfg["route"],)
+                check(launched == pin, f"{kname} {cfg} launched {launched}")
+                if kname == "flash_attention":
+                    q, k, v = args
+                    want = flash_attention_ref(q, k, v, scale=64 ** -0.5)
+                    err = float((got - want).abs().max())
+                    check(err <= TOL_ATTN * float(want.abs().max()),
+                          f"flash attention {cfg} at {scn.key()}: max "
+                          f"error {err:.3e}")
+                else:
+                    x, = args
+                    c = x.shape[0]
+                    want = x.permute(1, 2, 0).contiguous()
+                    if c % 8 == 0:
+                        want = want.unflatten(-1, (c // 8, 8))
+                    check(got.equal(want), f"layout transform {cfg} at "
+                          f"{scn.key()}: not bit-exact")
+            n_checked[kname] = n_checked.get(kname, 0) + 1
+    print("  every valid configuration launched once with its pinned plan "
+          f"(tile and splits, BQ and S, route as the C entry received "
+          f"them) and held against its plain version (TOL_F32 "
+          f"{TOL_F32}, TOL_ATTN {TOL_ATTN}, the routes bit for bit): "
+          f"{n_checked}")
+
+
+def winners_report(torch, dev, prof, cat, buckets):
+    """Phase 9's answer to the planners' question.  Per kernel and bucket:
+    the host-clock times the tuner measured (``time_callable``: the
+    planner's own launch, which is the hand-written entry, or for K5 and
+    K6 the configuration the planner picks; the same launch pinned by a
+    variant, which gives the spread; the fastest variant), then each
+    candidate's device time (CUDA events around one call behind a sleep
+    kernel, median of ``WINNER_REPS``): whether the planner's launch is
+    the device's best, by how much it misses, and what the host-clock
+    winner costs on the device."""
+    import collections
+
+    from repro_torch.autotune import spaces
+    from repro_torch.autotune.measure import _space_of, kernel_variant_key
+    from repro_torch.core.costs import MeasureCache, prim_cost_key
+    from repro_torch.core.layouts import LAYOUT_BY_NAME
+    from repro_torch.core.primitives import build_registry, to_tensor
+
+    cache = MeasureCache()
+    sp = spaces()
+    pos = {"repro_conv_direct": (-5, -4)}
+    #: per kernel: host (planner - host best), host spread, device
+    #: (planner - device best), device (planner - host best)
+    stats = collections.defaultdict(lambda: collections.defaultdict(list))
+    card = gpu_line()
+
+    def dev_ms(fn):
+        return cuda_ms(torch, fn, reps=WINNER_REPS, inner=1)
+
+    def call_of(prim, scn):
+        w, b, x = cache.draws(scn)
+        lay = LAYOUT_BY_NAME[prim.l_in]
+        xm = lay.to_memory(x) if scn.n == 1 else \
+            np.stack([lay.to_memory(xi) for xi in x])
+        xin = to_tensor(xm).to(dev)
+        packed = {k: to_tensor(v).to(dev)
+                  for k, v in prim.prepare(scn, w.copy(), b.copy()).items()}
+        f = prim.make(scn)
+        return lambda: f(xin, packed)
+
+    def record(kname, scn, own_name, own, host, same, device):
+        """``host``/``device``: candidate name -> host s / device ms, the
+        planner's launch under ``own_name``."""
+        hbest = min(host, key=host.get)
+        dbest = min(device, key=device.get)
+        st = stats[kname]
+        st["host"].append(own - host[hbest])
+        if same is not None:
+            st["spread"].append(abs(own - same))
+        st["dev_miss"].append((device[own_name] - device[dbest]) * 1e-3)
+        st["dev_host_best"].append((device[own_name] - device[hbest]) * 1e-3)
+        print(f"    {kname:20s} {scn.key():34s} planner {own_name}: host "
+              f"{own * 1e3:.4f} ms"
+              + ("" if same is None else f" (pinned again {same * 1e3:.4f})")
+              + f", device {device[own_name]:.4f} ms; host best {hbest} "
+              f"{host[hbest] * 1e3:.4f} ms, device {device[hbest]:.4f} ms; "
+              f"device best {dbest} {device[dbest]:.4f} ms")
+
+    for entry in (p for p in build_registry() if p.family == "pallas"):
+        space = _space_of(entry.name).SPACE
+        m_ = {"m_": int(entry.name[len("pallas_wino_f")])} \
+            if space.kernel == "winograd_gemm" else {}
+        for scn in buckets:
+            own = prof.get(prim_cost_key(entry.name, scn))
+            if own is None:
+                continue
+            names = [n for n, e in cat.variants.items()
+                     if n.split("@")[0] == entry.name
+                     and scn.key() in e["costs"]]
+            host = {n.split("@")[1]: cat.variants[n]["costs"][scn.key()]
+                    for n in names}
+            run = call_of(entry, scn)
+            with LaunchSpy() as spy:
+                run()
+                torch.cuda.synchronize()
+                tile, splits = spy.launched(pos.get(spy.calls[-1][0],
+                                                    (-6, -5)))
+            own_name = f"tile{tile}_splits{splits}"
+            same = host.get(own_name)
+            device = {n.split("@")[1]: dev_ms(call_of(space.make_primitive(
+                {**m_, **cat.variants[n]["params"]}), scn)) for n in names}
+            device[own_name] = dev_ms(run)  # the entry: the planner's
+            host[own_name] = own
+            record(entry.name, scn, own_name, own, host, same, device)
+    for kname in ("flash_attention", "layout_transform"):
+        space = sp[kname]
+        mod = sys.modules[f"repro_torch.kernels.{kname}.space"]
+        for scn in buckets:
+            own_p = mod.planner_params(scn)
+            if own_p is None:
+                continue
+            host, device = {}, {}
+            for cfg in space.configs():
+                sec = prof.get(kernel_variant_key(space, cfg, scn))
+                if sec is None:
+                    continue
+                name = "_".join(f"{k}{v}" for k, v in cfg.items())
+                fn, args = space.benchmark(scn, cfg, device=dev)()
+                host[name] = sec
+                device[name] = dev_ms(lambda: fn(*args))
+            own_name = "_".join(f"{k}{v}" for k, v in own_p.items())
+            if own_name in host:
+                record(kname, scn, own_name, host[own_name], host, None,
+                       device)
+    for k in sorted(stats):
+        st = stats[k]
+        g, dm, dh = st["host"], st["dev_miss"], st["dev_host_best"]
+        print(f"  {k}: host clock, a variant under the planner's launch at "
+              f"{sum(x > 0 for x in g)} of {len(g)} buckets, by up to "
+              f"{max(g) * 1e6:.2f} us (median {np.median(g) * 1e6:+.2f} us)"
+              + ("" if not st["spread"] else
+                 f"; the planner's launch timed twice differs by a median "
+                 f"{np.median(st['spread']) * 1e6:.2f} us, at most "
+                 f"{max(st['spread']) * 1e6:.2f} us")
+              + f"; device (CUDA events): the planner's launch the best at "
+              f"{sum(x <= 0 for x in dm)} of {len(dm)} buckets, missing it "
+              f"by a median {np.median(dm) * 1e6:.2f} us, at most "
+              f"{max(dm) * 1e6:.2f} us; the host's winner under the "
+              f"planner's launch at {sum(x > 0 for x in dh)} buckets, over "
+              f"it by a median {-np.median(dh) * 1e6:+.2f} us [{card}]")
+
+
+def tune_phase(torch, dev, out_dir, run_path, paths, net, params, inputs,
+               sum2d, taps_, calib_prof, untuned):
+    """Phase 9: the tuner on the card.  Every pinned configuration
+    against its plain version; ``repro_torch.launch.tune`` over phase 7's
+    AlexNet buckets, resumed by ``tune`` with GoogLeNet's 1x1 buckets
+    (one path, ``tune``); per kernel the catalog's counts and each
+    bucket's winner against the planner's own launch; the catalog
+    installed and AlexNet solved over the widened registry on phase 7's
+    profile merged with the tune's, its plans (``jit=False`` and
+    ``jit=True``) against SUM2D and timed beside ``untuned`` (batch ->
+    phase 7's calibrated eager plan); a ``PlanServer`` built after
+    ``install()`` misses where one built before hit; uninstall."""
+    import collections
+    import contextlib
+    import io
+
+    from repro_torch.autotune import VariantCatalog, tune
+    from repro_torch.calibrate import (CalibratedCostModel, HardwareProfile,
+                                       scenarios_from_net)
+    from repro_torch.convnets import NETWORKS, googlenet
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.core.plan import compile_plan, measure
+    from repro_torch.core.primitives import registry
+    from repro_torch.core.selection import select_pbqp
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.launch import tune as cli
+    from repro_torch.serving import BucketPolicy, PlanServer
+
+    alex = scenarios_from_net(NETWORKS[CALIB_NET](TUNE_SCALE),
+                              batches=CALIB_BATCHES)
+    pw = [s for s in scenarios_from_net(googlenet(TUNE_SCALE)) if s.k == 1]
+    buckets = alex + pw
+    pinned_configs_phase(torch, dev, buckets)
+
+    # ---- the tuning path: the CLI over AlexNet, tune() adds GoogLeNet ----
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cat_path = out_dir / "alexnet_catalog.json"
+    prof_path = cat_path.with_suffix(".profile.json")
+    for p in (cat_path, prof_path):
+        p.unlink(missing_ok=True)
+    argv = ["--catalog", str(cat_path), "--device", dev.type] + tune_args()
+    sync(torch, dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(out_dir / "tune.log", "w") as log:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        log.write(f"$ tune {' '.join(argv)}\n{buf.getvalue()}")
+        check(rc == 0, f"tune {argv} exited {rc}")
+        for line in buf.getvalue().splitlines():
+            if line.startswith(("tune plan", "measured ", "catalog: ")):
+                print(f"  {line}")
+        cli_s = time.perf_counter() - t0
+        prof = HardwareProfile.load(prof_path)
+        n_cli = len(prof)
+        res = tune(buckets, measure_mode=TUNE_MEASURE, profile=prof,
+                   profile_path=prof_path, budget=TUNE_BUDGET, device=dev)
+        sync(torch, dev)
+        tune_s = time.perf_counter() - t0
+        res.catalog.save(cat_path)
+        log.write(f"tune(+ GoogLeNet 1x1 at batch 1): {res.sweep}\n")
+    paths["tune"] = counts = launch_counts()
+    cat = res.catalog
+    check(res.sweep["remaining"] == 0 or TUNE_BUDGET is not None,
+          f"tune left items: {res.sweep}")
+    check(res.sweep["skipped"] == n_cli, f"tune() did not resume the CLI's "
+          f"{n_cli} entries: {res.sweep}")
+    print(f"  path tune: the CLI measured {n_cli} items over {len(alex)} "
+          f"AlexNet buckets in {cli_s:.1f} s; tune() resumed them and "
+          f"measured {res.sweep['measured']} more over {len(pw)} GoogLeNet "
+          f"1x1 buckets; {tune_s:.1f} s in all [{gpu_line()}]; launches "
+          f"{counts}")
+    for k in ("matmul", "conv_im2col", "winograd_gemm", "conv_direct",
+              "flash_attention"):
+        check(counts.get(k, 0) > 0, f"the tune path launched no {k}")
+    check(any(k.startswith("layout_transform.") for k in counts),
+          "the tune path launched no layout transform")
+
+    # ---- per kernel: the catalog, and each bucket's winner ----
+    by_kernel = collections.defaultdict(lambda: [0, 0])
+    for name, e in cat.variants.items():
+        by_kernel[e["kernel"]][0] += 1
+        by_kernel[e["kernel"]][1] += name in cat.survivors()
+    for k, (gen, surv) in sorted(by_kernel.items()):
+        print(f"  {k:14s} generated {gen:3d}, surviving {surv:3d}, pruned "
+              f"{gen - surv:3d}")
+    print(f"  catalog: {res.generated} generated, {res.surviving} "
+          f"surviving, {res.pruned} pruned, {len(cat.kernels)} kernel-only "
+          f"winners, content {cat.content_hash()} -> {cat_path}")
+    winners_report(torch, dev, prof, cat, buckets)
+
+    # ---- install; solve over the widened registry ----
+    n0 = len(registry())
+    policy = BucketPolicy(spatial="exact", channel="exact")
+    shape = net.nodes["data"].out_shape
+    cache = tempfile.TemporaryDirectory()
+    scost = AnalyticCostModel(H100_SPEC, include_kernels=True)
+
+    def plan_server():
+        return PlanServer(lambda s: net, scost, policy=policy, device=dev,
+                          cache_dir=cache.name)
+
+    before = [plan_server() for _ in range(2)]
+    for srv in before:
+        srv.plan_for(shape)
+    installed = cat.install()
+    check(len(registry()) == n0 + installed and installed == res.surviving,
+          f"install registered {installed}, the registry grew by "
+          f"{len(registry()) - n0}")
+    merged = HardwareProfile(device=calib_prof.device,
+                             registry=calib_prof.registry,
+                             entries={**calib_prof.entries, **prof.entries})
+    cost = CalibratedCostModel(merged, fallback=AnalyticCostModel(H100_SPEC),
+                               device=dev)
+    card = gpu_line()
+    for b in CALIB_BATCHES:
+        nb = net if b == 1 else net.with_batch(b)
+        tsel = select_pbqp(nb, cost)
+        picks = {nd.id: tsel.choices[nd.id].primitive.name
+                 for nd in nb.conv_nodes()}
+        tuned = {k: v for k, v in picks.items() if "@" in v}
+        print(f"  tuned PBQP, batch {b}: predicted "
+              f"{tsel.predicted_cost * 1e3:.4f} ms; picks {picks}; "
+              f"variants picked: {tuned or 'none'}")
+        eager = compile_plan(tsel, params, batch=b, jit=False, device=dev)
+        run_path(f"tuned_pbqp_alexnet_b{b}", eager, inputs[b])
+        for jit in (False, True):
+            agree(compile_plan(tsel, params, batch=b, jit=jit, device=dev,
+                               outputs=taps_)(inputs[b]), sum2d[b],
+                  f"tuned PBQP (jit={jit}) vs SUM2D, batch {b}")
+        times = {}
+        for what, cn in (("un-tuned", untuned[b]), ("tuned", eager),
+                         ("tuned ", eager), ("un-tuned ", untuned[b])):
+            t = measure(cn, inputs[b], reps=20)["mean_s"]
+            times.setdefault(what.strip(), []).append(t)
+        print(f"  batch {b}: tuned and un-tuned calibrated plans agree with "
+              f"SUM2D (jit=False and jit=True); host clock, 20 eager "
+              "forwards, in turns: " + ", ".join(
+                  f"{k} {np.mean(v) * 1e3:.4f} ms" for k, v in times.items())
+              + f" [{card}]")
+
+    # ---- the plan cache: a server built after install() misses ----
+    after = plan_server()
+    after.plan_for(shape)
+    hit = before[1].stats()["plan_disk_hits"]
+    st = after.stats()
+    check(hit == 1 and st["plan_disk_hits"] == 0 and st["plan_misses"] == 1,
+          f"plan cache across install(): before {hit} disk hit(s), after "
+          f"{st}")
+    check(after.cost_version != before[0].cost_version,
+          "install() left the server's cost version")
+    print(f"  PlanServer on one cache_dir: built before install() it hit "
+          f"the disk ({hit}); built after it missed "
+          f"(plan_misses={st['plan_misses']}, plan_disk_hits="
+          f"{st['plan_disk_hits']}): the extension token rotated its key")
+    for srv in before + [after]:
+        srv.close()
+    cache.cleanup()
+    check(VariantCatalog.uninstall() and len(registry()) == n0,
+          "uninstall left variants in the registry")
+
+
+class RecordingProfile:
+    """Mixin over ``HardwareProfile``: the keys ``put`` wrote."""
+
+    def put(self, key, seconds):
+        self.__dict__.setdefault("written", []).append(key)
+        super().put(key, seconds)
+
+
+def drift_phase(torch, dev, paths, net, params, x1, sum2d1, taps_,
+                calib_prof):
+    """Phase 10: ``recalibration_loop`` on AlexNet at batch 1 from a copy
+    of phase 7's profile.  One path, ``drift``: counts at 0 before the
+    loop, read after; each round launches one forward's kernels per
+    instrumented run and its warm-up.  Each round's instrumented outputs
+    must be its eager walk's bits, and its plan must agree with SUM2D."""
+    from repro_torch.calibrate import HardwareProfile
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.kernels import expected_launches
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.obs import drift
+
+    class Profile(RecordingProfile, HardwareProfile):
+        pass
+
+    class Recorded(drift.InstrumentedNet):
+        """The loop's instrumented nets, one per round, and their runs'
+        outputs."""
+        made = []
+
+        def __init__(self, cnet, warmup=True):
+            self.outs = []
+            Recorded.made.append(self)
+            super().__init__(cnet, warmup)
+
+        def __call__(self, x):
+            outs, tm = super().__call__(x)
+            self.outs.append(outs)
+            return outs, tm
+
+    prof = Profile.from_payload(calib_prof.to_payload())
+    h0 = prof.content_hash()
+    sync(torch, dev)
+    reset_launch_counts()
+    orig, drift.InstrumentedNet = drift.InstrumentedNet, Recorded
+    try:
+        t0 = time.perf_counter()
+        res = drift.recalibration_loop(
+            net, params, x1, prof, threshold=DRIFT_THRESHOLD,
+            runs=DRIFT_RUNS, max_rounds=DRIFT_ROUNDS,
+            fallback=AnalyticCostModel(H100_SPEC), device=dev)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        drift.InstrumentedNet = orig
+    paths["drift"] = counts = launch_counts()
+    rounds = res["rounds"]
+    check(0 < len(rounds) <= DRIFT_ROUNDS and len(Recorded.made) ==
+          len(rounds), f"{len(rounds)} rounds, {len(Recorded.made)} "
+          f"instrumented nets, at most {DRIFT_ROUNDS}")
+    want = {}
+    for rnd, inst in zip(rounds, Recorded.made):
+        sel = inst.cnet.sel
+        check({n.id: sel.choices[n.id].primitive.name
+               for n in net.conv_nodes()} == rnd["primitives"],
+              f"round {rnd['round']}: recorded plan differs")
+        # the warm-up call is recorded too: 1 + DRIFT_RUNS forwards
+        check(len(inst.outs) == 1 + DRIFT_RUNS,
+              f"round {rnd['round']}: {len(inst.outs)} instrumented calls")
+        eager = inst.cnet(x1)
+        for outs in inst.outs[1:]:
+            for k in eager:
+                check(outs[k].equal(eager[k]), f"round {rnd['round']}: the "
+                      f"instrumented {k} differs from the eager walk's")
+        agree(compile_plan(sel, params, jit=False, device=dev,
+                           outputs=taps_)(x1), sum2d1,
+              f"drift round {rnd['round']} vs SUM2D")
+        for k, v in expected_launches(sel).items():
+            want[k] = want.get(k, 0) + (1 + DRIFT_RUNS) * v
+        print(f"  round {rnd['round']}: plan ratio {rnd['plan_ratio']:.4f}, "
+              f"predicted {rnd['predicted_cost'] * 1e3:.4f} ms, flagged "
+              f"{rnd['flagged']}; picks {rnd['primitives']}")
+    check(counts == want, f"drift path: launches {counts}, expected "
+          f"(1 + {DRIFT_RUNS}) forwards per round {want}")
+    written = prof.__dict__.get("written", [])
+    check((prof.content_hash() != h0) == bool(written),
+          f"profile hash {'moved' if prof.content_hash() != h0 else 'kept'}"
+          f" with {len(written)} entries written")
+    det = res["detector"]
+    print(f"  {len(rounds)} round(s) in {wall:.1f} s; converged="
+          f"{res['converged']}; plan ratio {det.plan_ratio():.4f}; "
+          f"{len(written)} profile entries rewritten "
+          f"({sorted(set(written))[:6]}{' ...' if len(set(written)) > 6 else ''}"
+          f"); profile hash {h0} -> {prof.content_hash()}; path drift: "
+          f"launches {counts}; every instrumented output the eager walk's "
+          f"bits, every round's plan agrees with SUM2D [{gpu_line()}]")
+    for row in det.report()[:8]:
+        print(f"    {row['kind']:4s} {row['node']:14s} {row['primitive']:26s} "
+              f"predicted {row['predicted_ms']:.4f} ms observed "
+              f"{row['observed_ms']:.4f} ms ratio {row['ratio']:.3f}"
+              f"{' flagged' if row['flagged'] else ''}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1335,16 +1885,32 @@ def main() -> int:
     # ---- 7. calibration on the card, and selection on its profile ----
     print("== calibration: python -m repro_torch.launch.calibrate "
           f"{' '.join(CALIB_ARGS)} ==")
-    calibration_phase(
+    calib_plans = {"H100_SPEC PBQP, batch 1": (1, opt),
+                   "SUM2D, batch 1": (1, base),
+                   "H100_SPEC PBQP, batch 8": (8, opt8),
+                   "SUM2D, batch 8": (8, base8)}
+    calib_prof = calibration_phase(
         torch, dev, ROOT / "build" / "calibration", run_path, paths,
         net, params, {1: x1, 8: x8},
         {1: {k: v[0] for k, v in base_t.items()}, 8: base_t}, t_,
-        {"H100_SPEC PBQP, batch 1": (1, opt), "SUM2D, batch 1": (1, base),
-         "H100_SPEC PBQP, batch 8": (8, opt8), "SUM2D, batch 8": (8, base8)})
+        calib_plans)
     # ---- 8. the conv PlanServer, serving captured CUDA graphs ----
     print("== serving: PlanServer(alexnet(1.0), H100_SPEC with kernels, "
           "exact buckets), jit=True on the card ==")
     serving_phase(torch, dev, xs, base_t["prob"], paths)
+    # ---- 9. the autotuner over the kernels' launch plans ----
+    print("== tune: python -m repro_torch.launch.tune "
+          f"{' '.join(tune_args())}, then GoogLeNet's 1x1 buckets ==")
+    sum2d = {1: {k: v[0] for k, v in base_t.items()}, 8: base_t}
+    tune_phase(torch, dev, ROOT / "build" / "tune", run_path, paths, net,
+               params, {1: x1, 8: x8}, sum2d, t_, calib_prof,
+               {b: calib_plans[f"calibrated PBQP, batch {b}"][1]
+                for b in CALIB_BATCHES})
+    # ---- 10. drift: the recalibration loop on the card ----
+    print(f"== drift: recalibration_loop({net.name}, batch 1, phase 7's "
+          f"profile, threshold {DRIFT_THRESHOLD}, runs {DRIFT_RUNS}) ==")
+    drift_phase(torch, dev, paths, net, params, x1, sum2d[1], t_,
+                calib_prof)
     for r in reports:
         check(not r.on_path or any(c.get(r.name) for c in paths.values()),
               f"kernel {r.name} never launched on a path")

@@ -156,6 +156,9 @@ class CompiledNet:
     fused_edges: int = 0
     #: per-conv-node maker callables (fusion-resolved wire layouts)
     makers: Optional[Dict[str, Callable]] = None
+    #: the returned nodes and the layout each is produced in (converted
+    #: to logical CHW on the way out)
+    out_layouts: Optional[Dict[str, str]] = None
     #: capture the forward as a CUDA graph on the first call (a card only)
     jit: bool = False
     #: the graph, once captured
@@ -297,7 +300,8 @@ def compile_plan(sel: SelectionResult, raw_params: Dict[str, Dict],
     cnet = CompiledNet(sel, _image_walker(sel, net, makers, out_layouts),
                        packed, dev,
                        build_s=time.perf_counter() - t0, batch=batch,
-                       fused_edges=len(fusions), makers=makers, jit=jit)
+                       fused_edges=len(fusions), makers=makers,
+                       out_layouts=out_layouts, jit=jit)
     get_tracer().emit("compile", t0, time.perf_counter(),
                       nodes=len(net.order), batch=batch,
                       fused_edges=cnet.fused_edges, mesh_mode="",

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from ..common import KernelLib, ptr, require_cuda, stream_ptr
-from ..matmul.plan import GemmPlan, plan_gemm, vector_width
+from ..matmul.plan import GemmPlan, pin_gemm, plan_gemm, vector_width
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _ENTRY = {torch.float32: "repro_conv_direct",
@@ -32,12 +32,13 @@ CONV_TILES = (0, 1)
 
 def conv_direct_cuda(x, w, b, *, stride: int = 1, pad: int = 0,
                      in_layout: str = "HWC", out_layout: str = "HWC",
-                     plan: GemmPlan = None):
+                     plan: GemmPlan = None, pin=None):
     """x: (N, H, W, C), or (N, C, H, W) with ``in_layout="CHW"``;
     w: (K, K, C, M); b: (M,); contiguous, f32, bf16 or f16 (one dtype
     for all).  Accumulates in f32 and returns (N, OH, OW, M), or
     (N, M, OH, OW) with ``out_layout="CHW"``, in x's dtype.  ``plan``
-    overrides :func:`conv_plan`'s launch (for sweeps)."""
+    overrides :func:`conv_plan`'s launch (for sweeps); ``pin = (tile,
+    splits)`` launches that tile and split count (a tuned variant's)."""
     require_cuda(x, w, b)
     if x.dtype not in _ENTRY:
         raise TypeError(f"direct conv takes f32, bf16 or f16; x is "
@@ -71,7 +72,7 @@ def conv_direct_cuda(x, w, b, *, stride: int = 1, pad: int = 0,
                     dtype=x.dtype, device=x.device)
     if plan is None:
         plan = conv_plan(n, c, m, k, oh, ow, chw_out,
-                         vector_width(w.view(-1, m), 1))
+                         vector_width(w.view(-1, m), 1), pin)
     LIB.call(_ENTRY[x.dtype], ptr(x), ptr(w), ptr(b), ptr(y), n, c, h,
              wd, m, k, stride, pad, oh, ow, int(chw_in), int(chw_out),
              plan.tile, plan.splits, plan.kslice,
@@ -80,12 +81,19 @@ def conv_direct_cuda(x, w, b, *, stride: int = 1, pad: int = 0,
 
 
 def conv_plan(n: int, c: int, m: int, k: int, oh: int, ow: int,
-              chw_out: bool, vec_w: int = 1) -> GemmPlan:
+              chw_out: bool, vec_w: int = 1, pin=None) -> GemmPlan:
     """The launch of the implicit GEMM: (OH*OW x K*K*C) @ (K*K*C x M) per
     image, or its transpose (M x K*K*C) @ (K*K*C x OH*OW) for a CHW
     output; ``vec_w`` is the weights' copy width (the gathered input's
-    is 1)."""
+    is 1).  ``pin = (tile, splits)``, a tile of ``CONV_TILES``, in place
+    of the planner's choice."""
     p, r = oh * ow, k * k * c
-    if chw_out:
-        return plan_gemm(m, p, r, n, vec_a=vec_w, tiles=CONV_TILES)
-    return plan_gemm(p, m, r, n, vec_b=vec_w, tiles=CONV_TILES)
+    rows, cols = (m, p) if chw_out else (p, m)
+    vec = dict(vec_a=vec_w) if chw_out else dict(vec_b=vec_w)
+    if pin is None:
+        return plan_gemm(rows, cols, r, n, tiles=CONV_TILES, **vec)
+    tile, splits = pin
+    if tile not in CONV_TILES:
+        raise ValueError(f"the direct conv is built for tiles {CONV_TILES}, "
+                         f"not {tile}")
+    return pin_gemm(rows, cols, r, n, tile=tile, splits=splits, **vec)

@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from ..common import KernelLib, ptr, require_cuda, stream_ptr
-from .plan import AttnPlan, plan_attention
+from .plan import AttnPlan, pin_attention, plan_attention
 
 _I, _L, _F, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_float, \
     ctypes.c_void_p
@@ -75,20 +75,23 @@ def attention_plan(q, k, v, *, lk_valid=None,
 def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = False,
                          window: int = 0, softcap: float = 0.0,
                          lk_valid=None, seq_major: bool = False,
-                         plan: AttnPlan = None):
+                         plan: AttnPlan = None, pin=None):
     """q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D), or all (B, L, H, D) with
     ``seq_major``; the batch axis may be left out.  f32, bf16 or f16, one
     dtype for all, the head dim contiguous, any D >= 1.  Computes in f32
     (q scaled in f32, f32 logits, softmax and accumulator) and returns
     q's shape in q's dtype, as the reference kernel does.  ``plan``
-    overrides :func:`attention_plan`'s launch (for sweeps)."""
+    overrides :func:`attention_plan`'s launch (for sweeps); ``pin = (bq,
+    splits)`` launches that query tile and KV split (a tuned variant's)."""
     require_cuda(q, k, v)
     (q4, k4, v4), order, (b, hq, hkv, lq, d), lk_valid, strides = \
         _operands(q, k, v, lk_valid, seq_major)
     o4 = torch.empty_like(q4, memory_format=torch.contiguous_format)
     so = [o4.stride(i) for i in order]
     if o4.numel():
-        if plan is None:
+        if plan is None and pin is not None:
+            plan = pin_attention(b, hq, lq, d, bq=pin[0], splits=pin[1])
+        elif plan is None:
             plan = plan_attention(b, hq, lq, lk_valid, d, q.dtype)
         if hq * plan.slices > _MAX_GRID_YZ:
             raise ValueError(f"{hq} heads x {plan.slices} slices outside "

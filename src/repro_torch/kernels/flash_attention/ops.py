@@ -9,7 +9,8 @@ from .ref import flash_attention_ref
 
 def flash_attention(q, k, v, *, scale=None, causal: bool = False,
                     window: int = 0, softcap: float = 0.0,
-                    bq: int = 128, bk: int = 128, layout: str = "HLD"):
+                    bq: int = 128, bk: int = 128, layout: str = "HLD",
+                    pin=None):
     """Multi-head attention through the flash kernel.
 
     ``layout="HLD"``: q is (B, Hq, Lq, D), k/v are (B, Hkv, Lk, D) ->
@@ -19,6 +20,8 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = False,
     returned in q's dtype.  ``bq``/``bk`` are the reference's tile sizes,
     kept in the signature: the CUDA kernel's tiles come from its launch
     planner and it masks ragged tiles, so neither changes the result.
+    ``pin = (bq, splits)`` launches that query tile and KV split instead
+    of the planner's (a tuned variant's); the plain version ignores it.
     """
     assert layout in ("HLD", "LHD")
     if bq < 1 or bk < 1:
@@ -29,6 +32,6 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = False,
               seq_major=layout == "LHD")
     if on_cpu(q):
         return flash_attention_ref(q, k, v, **kw)
-    out = flash_attention_cuda(q, k, v, **kw)
+    out = flash_attention_cuda(q, k, v, pin=pin, **kw)
     count_launch("flash_attention")
     return out

@@ -35,7 +35,8 @@ import torch
 
 from ..common import cdiv
 
-__all__ = ["AttnPlan", "plan_attention", "make_plan", "padded_dim",
+__all__ = ["AttnPlan", "plan_attention", "make_plan", "pin_attention",
+           "model_us", "padded_dim",
            "smem_bytes", "threads", "kv_tile", "HEAD_WIDTHS", "QUERY_TILES",
            "MAX_SPLITS"]
 
@@ -134,6 +135,26 @@ def make_plan(b: int, hq: int, lq: int, d: int, dp: int, bq: int,
     slices = cdiv(d, dp) if d > dp else 1
     return AttnPlan(dp, bq, splits, slices,
                     (cdiv(lq, bq) * splits, hq * slices, b))
+
+
+@functools.lru_cache(maxsize=4096)
+def pin_attention(b: int, hq: int, lq: int, d: int, *, bq: int,
+                  splits: int) -> AttnPlan:
+    """The launch of query tile ``bq`` and KV split ``splits`` (a tuned
+    variant's) at the padded head dim the planner takes; raises
+    ValueError where the kernel does not run them."""
+    dp = padded_dim(d)
+    if bq not in QUERY_TILES or not 1 <= splits <= MAX_SPLITS or \
+            (d > dp and bq != 32):
+        raise ValueError(f"no launch of BQ {bq}, S {splits} at head dim "
+                         f"{d}")
+    return make_plan(b, hq, lq, d, dp, bq, splits)
+
+
+def model_us(plan: AttnPlan, lk: int) -> float:
+    """The planner's model of ``plan``'s time (us) over ``lk`` keys."""
+    tiles = max(1, cdiv(lk, kv_tile(plan.dp)))
+    return _model_us(plan.dp, plan.bq, plan.blocks, plan.splits, tiles)
 
 
 @functools.lru_cache(maxsize=4096)

@@ -70,10 +70,10 @@ def transpose_cuda(x: torch.Tensor, r: int, s: int,
     return y
 
 
-def chw_to_hwc_cuda(x: torch.Tensor) -> torch.Tensor:
+def chw_to_hwc_cuda(x: torch.Tensor, route_: int = None) -> torch.Tensor:
     """x: (C, H, W) or (N, C, H, W) -> (H, W, C) or (N, H, W, C)."""
     *lead, c, h, w = x.shape
-    return transpose_cuda(x, c, h * w).reshape(*lead, h, w, c)
+    return transpose_cuda(x, c, h * w, route_).reshape(*lead, h, w, c)
 
 
 def hwc_to_chw_cuda(x: torch.Tensor) -> torch.Tensor:
@@ -82,11 +82,11 @@ def hwc_to_chw_cuda(x: torch.Tensor) -> torch.Tensor:
     return transpose_cuda(x, h * w, c).reshape(*lead, c, h, w)
 
 
-def chw_to_hwc8_cuda(x: torch.Tensor) -> torch.Tensor:
+def chw_to_hwc8_cuda(x: torch.Tensor, route_: int = None) -> torch.Tensor:
     """x: (N?, C, H, W) -> (N?, H, W, C/8, 8); C % 8 == 0."""
     c = x.shape[-3]
     assert c % 8 == 0
-    return chw_to_hwc_cuda(x).unflatten(-1, (c // 8, 8))
+    return chw_to_hwc_cuda(x, route_).unflatten(-1, (c // 8, 8))
 
 
 def hwc8_to_chw_cuda(x: torch.Tensor) -> torch.Tensor:

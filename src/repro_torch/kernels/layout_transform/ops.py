@@ -11,17 +11,20 @@ from .ref import (chw_to_hwc8_ref, chw_to_hwc_ref, hwc8_to_chw_ref,
                   hwc_to_chw_ref)
 
 
-def _dispatch(x, entry, kernel, plain):
+def _dispatch(x, entry, kernel, plain, *route):
     if on_cpu(x):
         return plain(x)
-    y = kernel(x)
+    y = kernel(x, *route)
     count_launch(f"layout_transform.{entry}")
     return y
 
 
-def chw_to_hwc(x):
-    """(C, H, W) -> (H, W, C), any H/W; optional leading batch axis."""
-    return _dispatch(x, "chw_to_hwc", chw_to_hwc_cuda, chw_to_hwc_ref)
+def chw_to_hwc(x, route_=None):
+    """(C, H, W) -> (H, W, C), any H/W; optional leading batch axis.
+    ``route_`` overrides the kernel's route (``kernel.route``; a tuned
+    variant's); the plain version ignores it."""
+    return _dispatch(x, "chw_to_hwc", chw_to_hwc_cuda, chw_to_hwc_ref,
+                     route_)
 
 
 def hwc_to_chw(x):
@@ -29,10 +32,12 @@ def hwc_to_chw(x):
     return _dispatch(x, "hwc_to_chw", hwc_to_chw_cuda, hwc_to_chw_ref)
 
 
-def chw_to_hwc8(x):
-    """One-shot (C, H, W) -> (H, W, C/8, 8); C % 8 == 0, any H/W."""
+def chw_to_hwc8(x, route_=None):
+    """One-shot (C, H, W) -> (H, W, C/8, 8); C % 8 == 0, any H/W;
+    ``route_`` as in :func:`chw_to_hwc`."""
     assert x.shape[-3] % 8 == 0
-    return _dispatch(x, "chw_to_hwc8", chw_to_hwc8_cuda, chw_to_hwc8_ref)
+    return _dispatch(x, "chw_to_hwc8", chw_to_hwc8_cuda, chw_to_hwc8_ref,
+                     route_)
 
 
 def hwc8_to_chw(x):

@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from ..common import KernelLib, ptr, require_cuda, stream_ptr
-from .plan import GemmPlan, plan_gemm, vector_width
+from .plan import GemmPlan, pin_gemm, plan_gemm, vector_width
 
 _I, _L, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _L, _L,
@@ -37,7 +37,8 @@ def _as_batch(t: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def matmul_cuda(x, y, bias=None, *, fuse_relu: bool = False,
-                lhs_layout: str = "mk", out_layout: str = "mn"):
+                lhs_layout: str = "mk", out_layout: str = "mn",
+                plan: GemmPlan = None, pin=None):
     """Launch the GEMM kernel; same contract as ``ops.matmul``.
 
     x (M, K) — or (K, M) with ``lhs_layout="km"`` — and y (K, N), each
@@ -45,6 +46,9 @@ def matmul_cuda(x, y, bias=None, *, fuse_relu: bool = False,
     (N,).  f32, bf16 or f16, one dtype for all; any strides.  Accumulates
     in f32 and returns (B?, M, N), or (B?, N, M) with
     ``out_layout="nm"``, in x's dtype, as the reference kernel does.
+    ``plan`` overrides :func:`matmul_plan`'s launch (for sweeps); ``pin
+    = (tile, splits)`` launches that tile and split count instead of the
+    planner's (a tuned variant's).
     """
     require_cuda(x, y, bias)
     if x.dtype not in _ENTRY:
@@ -63,7 +67,8 @@ def matmul_cuda(x, y, bias=None, *, fuse_relu: bool = False,
                       dtype=x.dtype, device=x.device)
     c3 = out.transpose(1, 2) if trans_out else out
     if m and n:
-        launch(_plan(a3, b3), a3, b3, bias, c3, fuse_relu)
+        launch(_plan(a3, b3, pin) if plan is None else plan, a3, b3, bias,
+               c3, fuse_relu)
     return out if x.dim() == 3 or y.dim() == 3 else out[0]
 
 
@@ -84,10 +89,14 @@ def _operands(x, y, lhs_layout):
     return a3, b3
 
 
-def _plan(a3, b3) -> GemmPlan:
+def _plan(a3, b3, pin=None) -> GemmPlan:
     nb, m, k = a3.shape
-    return plan_gemm(m, b3.shape[2], k, nb, a3.dtype, vector_width(a3, 1),
-                     vector_width(b3, 2))
+    args = (m, b3.shape[2], k, nb, a3.dtype, vector_width(a3, 1),
+            vector_width(b3, 2))
+    if pin is None:
+        return plan_gemm(*args)
+    tile, splits = pin
+    return pin_gemm(*args, tile=tile, splits=splits)
 
 
 def matmul_plan(x, y, *, lhs_layout: str = "mk") -> GemmPlan:

@@ -8,13 +8,15 @@ from .ref import matmul_ref
 
 
 def matmul(x, y, bias=None, *, fuse_relu: bool = False,
-           lhs_layout: str = "mk", out_layout: str = "mn"):
+           lhs_layout: str = "mk", out_layout: str = "mn", pin=None):
     """General ``x @ y (+ bias) (ReLU)``, any shapes.
 
     ``lhs_layout="km"`` consumes a transposed (K, M) LHS and
     ``out_layout="nm"`` emits the transposed (N, M) product, both inside
     the kernel (strides; no separate transpose pass).  A leading batch
-    axis on either operand runs as one launch.
+    axis on either operand runs as one launch.  ``pin = (tile, splits)``
+    launches that tile and split count instead of the planner's (a tuned
+    variant's); the plain version ignores it.
     """
     if lhs_layout not in ("mk", "km") or out_layout not in ("mn", "nm"):
         raise ValueError(f"bad layouts {lhs_layout!r}, {out_layout!r}")
@@ -22,6 +24,6 @@ def matmul(x, y, bias=None, *, fuse_relu: bool = False,
               out_layout=out_layout)
     if on_cpu(x):
         return matmul_ref(x, y, bias, **kw)
-    out = matmul_cuda(x, y, bias, **kw)
+    out = matmul_cuda(x, y, bias, pin=pin, **kw)
     count_launch("matmul")
     return out

@@ -27,20 +27,23 @@ over every tile and split count at AlexNet's im2col GEMMs, GoogLeNet's
 conv's conv1 and conv2 (``tools/bench_torch_gemm.py --sweep``; PERF.md
 gives the run).  Splits cut K into equal slices, a whole number of the
 tile's K steps each, at least ``MIN_STEPS`` steps long; none is empty.
-Plans are cached: the function is pure.
+Plans are cached: the function is pure.  A tuned variant
+(``kernels/*/space.py``) pins the tile and split count instead
+(:func:`pin_gemm`), where they are a plan the planner could choose.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..common import cdiv
 
-__all__ = ["GemmPlan", "plan_gemm", "vector_width", "TILES", "SMS",
-           "MAX_SPLITS", "MIN_STEPS"]
+__all__ = ["GemmPlan", "plan_gemm", "pin_gemm", "split_kslice", "model_us",
+           "vector_width", "smem_bytes", "TILES", "SMS", "MAX_SPLITS",
+           "MIN_STEPS", "SMEM_PER_BLOCK"]
 
 #: (BM, BN, BK) of each tile instantiation, by the C entries' ``tile``
 TILES = ((128, 128, 16), (64, 64, 32), (128, 32, 16), (128, 16, 32))
@@ -56,6 +59,8 @@ SPLIT_US = (0.0, 2.0, 4.4, 4.9)
 #: alone (128 x 128 holds one, 64 x 64 two, 128 x 32 three, 128 x 16 two)
 SHARE_GAIN = (1.0, 1.17, 2.6, 1.13)
 GPCS, GPC_SMS = 7, 16  # the cluster packing that fits the timings
+STAGES = 4         # the mainloop's ring of K slices (``sgemm_sm90.cuh``)
+SMEM_PER_BLOCK = 232448  # Hopper's 227 KB of dynamic shared memory
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,12 +112,30 @@ def vector_width(t: torch.Tensor, staged_dim: int) -> int:
     return 4 if all(s % 4 == 0 for s in others) else 1
 
 
+def smem_bytes(tile: int) -> int:
+    """A block's dynamic shared memory on ``tile``, as ``Tile::RING``
+    counts it: the ring of K slices of A and B, f32, pitches padded by 4."""
+    bm, bn, bk = TILES[tile]
+    return 4 * STAGES * bk * (bm + 4 + bn + 4)
+
+
 def _splits(k: int, bk: int, splits: int) -> Tuple[int, int]:
     """(S, kslice) for about ``splits`` equal slices of whole steps, with
     no empty slice."""
     steps = max(1, cdiv(k, bk))
     kslice = cdiv(steps, splits) * bk
     return max(1, cdiv(k, kslice)), kslice
+
+
+def split_kslice(k: int, tile: int, splits: int) -> Optional[int]:
+    """The K slice of ``splits`` equal splits on ``tile``, or None where
+    the planner would not launch them: the slices come out fewer than
+    asked, or shorter than ``MIN_STEPS`` steps."""
+    bk = TILES[tile][2]
+    got, kslice = _splits(k, bk, splits)
+    if got != splits or (splits > 1 and kslice < MIN_STEPS * bk):
+        return None
+    return kslice
 
 
 def _model_us(tile: int, tiles: int, splits: int, kslice: int) -> float:
@@ -127,12 +150,21 @@ def _model_us(tile: int, tiles: int, splits: int, kslice: int) -> float:
             + (SPLIT_US[tile] if splits > 1 else 0.0))
 
 
-@functools.lru_cache(maxsize=4096)
-def plan_gemm(m: int, n: int, k: int, batch: int = 1,
-              dtype: torch.dtype = torch.float32, vec_a: int = 1,
-              vec_b: int = 1, tiles: Tuple[int, ...] = None) -> GemmPlan:
-    """The launch of an (M x K) @ (K x N) product over ``batch``, on one
-    of ``tiles`` (indices into ``TILES``; all of them by default)."""
+def model_us(plan: GemmPlan, m: int, n: int, batch: int = 1) -> float:
+    """The planner's model of ``plan``'s time (us) on an (M x K) @ (K x N)
+    product over ``batch``."""
+    tiles = cdiv(m, plan.bm) * cdiv(n, plan.bn) * batch
+    return _model_us(plan.tile, tiles, plan.splits, plan.kslice)
+
+
+def _plan(tile: int, splits: int, kslice: int, m: int, n: int, batch: int,
+          vec_a: int, vec_b: int) -> GemmPlan:
+    bm, bn, _ = TILES[tile]
+    return GemmPlan(tile, splits, kslice, vec_a, vec_b,
+                    (cdiv(n, bn) * splits, cdiv(m, bm), batch))
+
+
+def _check(m, n, k, batch, dtype, vec_a, vec_b):
     if min(m, n, batch) < 1 or k < 0:
         raise ValueError(f"no GEMM of {m}x{k} @ {k}x{n} over {batch}")
     if dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -140,17 +172,44 @@ def plan_gemm(m: int, n: int, k: int, batch: int = 1,
                         f"{dtype}")
     if dtype != torch.float32:
         vec_a = vec_b = 1  # 2-byte types are loaded through registers
+    return vec_a, vec_b
+
+
+@functools.lru_cache(maxsize=4096)
+def pin_gemm(m: int, n: int, k: int, batch: int = 1,
+             dtype: torch.dtype = torch.float32, vec_a: int = 1,
+             vec_b: int = 1, *, tile: int, splits: int) -> GemmPlan:
+    """The launch of ``tile`` and ``splits`` (a tuned variant's) for this
+    product, in place of the planner's choice; raises ValueError where the
+    planner would not launch them (:func:`split_kslice`).  Cached, as
+    :func:`plan_gemm` is, so a pinned launch costs the host no more than
+    the planner's."""
+    vec_a, vec_b = _check(m, n, k, batch, dtype, vec_a, vec_b)
+    if not 0 <= tile < len(TILES) or not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"no tile {tile} with {splits} splits")
+    kslice = split_kslice(k, tile, splits)
+    if kslice is None:
+        raise ValueError(f"{splits} splits of K = {k} on the "
+                         f"{TILES[tile][0]}x{TILES[tile][1]} tile are not "
+                         f"a legal plan")
+    return _plan(tile, splits, kslice, m, n, batch, vec_a, vec_b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_gemm(m: int, n: int, k: int, batch: int = 1,
+              dtype: torch.dtype = torch.float32, vec_a: int = 1,
+              vec_b: int = 1, tiles: Tuple[int, ...] = None) -> GemmPlan:
+    """The launch of an (M x K) @ (K x N) product over ``batch``, on one
+    of ``tiles`` (indices into ``TILES``; all of them by default)."""
+    vec_a, vec_b = _check(m, n, k, batch, dtype, vec_a, vec_b)
     cands = []
     for tile in range(len(TILES)) if tiles is None else tiles:
-        bm, bn, bk = TILES[tile]
+        bm, bn, _ = TILES[tile]
         out_tiles = cdiv(m, bm) * cdiv(n, bn) * batch
-        for want in range(1, MAX_SPLITS + 1):
-            splits, kslice = _splits(k, bk, want)
-            if splits != want or (splits > 1 and kslice < MIN_STEPS * bk):
-                continue
-            cands.append((_model_us(tile, out_tiles, splits, kslice),
-                          splits, tile, kslice))
+        for splits in range(1, MAX_SPLITS + 1):
+            kslice = split_kslice(k, tile, splits)
+            if kslice is not None:
+                cands.append((_model_us(tile, out_tiles, splits, kslice),
+                              splits, tile, kslice))
     _, splits, tile, kslice = min(cands)
-    bm, bn, _ = TILES[tile]
-    return GemmPlan(tile, splits, kslice, vec_a, vec_b,
-                    (cdiv(n, bn) * splits, cdiv(m, bm), batch))
+    return _plan(tile, splits, kslice, m, n, batch, vec_a, vec_b)

@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from ..common import KernelLib, ptr, require_cuda, stream_ptr
-from ..matmul.plan import GemmPlan, plan_gemm, vector_width
+from ..matmul.plan import GemmPlan, pin_gemm, plan_gemm, vector_width
 
 _I, _L, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 _ARGS = (_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
@@ -44,23 +44,27 @@ def _check(u, v):
         raise ValueError(f"{u.shape[0]} points outside the grid")
 
 
-def bgemm_plan(u, v) -> GemmPlan:
+def bgemm_plan(u, v, pin=None) -> GemmPlan:
     """The launch :func:`winograd_bgemm_cuda` makes for these operands:
     U's copies are 16 bytes where M is its contiguous axis, V's where N
-    is."""
+    is.  ``pin = (tile, splits)`` launches that tile and split count
+    instead of the planner's (a tuned variant's)."""
     _check(u, v)
     p, m, c = u.shape
-    return plan_gemm(m, v.shape[2], c, p, u.dtype, vector_width(u, 1),
-                     vector_width(v, 2))
+    args = (m, v.shape[2], c, p, u.dtype, vector_width(u, 1),
+            vector_width(v, 2))
+    if pin is None:
+        return plan_gemm(*args)
+    return pin_gemm(*args, tile=pin[0], splits=pin[1])
 
 
-def winograd_bgemm_cuda(u, v, plan: GemmPlan = None):
+def winograd_bgemm_cuda(u, v, plan: GemmPlan = None, pin=None):
     """u: (P, M, C), v: (P, C, N), f32, bf16 or f16 (one dtype), any
     strides -> a contiguous (P, M, N) in their dtype, accumulated in f32.
-    ``plan`` overrides the planner's launch (for sweeps)."""
+    ``plan`` overrides the planner's launch (for sweeps); ``pin = (tile,
+    splits)`` launches that tile and split count (a tuned variant's)."""
     require_cuda(u, v)
-    _check(u, v)
-    plan = bgemm_plan(u, v) if plan is None else plan
+    plan = bgemm_plan(u, v, pin) if plan is None else plan
     p, m, c = u.shape
     n = v.shape[2]
     q = torch.empty((p, m, n), dtype=u.dtype, device=u.device)

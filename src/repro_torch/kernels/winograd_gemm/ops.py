@@ -36,20 +36,27 @@ def prepare_kernel(w, m_: int = 2) -> torch.Tensor:
         1, 2)
 
 
-def winograd_bgemm(u, v):
+def winograd_bgemm(u, v, pin=None):
     """u: (P, M, C) x v: (P, C, N) -> (P, M, N), the reference's form; or
     v: (N, P, C, T) -> (N, P, M, T), one product per image, folded into
     the first form (a view at N = 1) and unfolded after.  The kernel on
-    CUDA tensors (one launch for every point and image), the plain
-    version on CPU tensors."""
+    CUDA tensors (one launch for every point and image; ``pin = (tile,
+    splits)`` in place of the planner's launch), the plain version on CPU
+    tensors."""
     if on_cpu(v):
         return bgemm_ref(u, v)
+
+    def launch(vf):
+        if pin is None:
+            return winograd_bgemm_cuda(u, vf)
+        return winograd_bgemm_cuda(u, vf, pin=pin)
+
     if v.dim() == 4:
         n, p, c, t = v.shape
-        q = winograd_bgemm_cuda(u, v.permute(1, 2, 0, 3).reshape(p, c, n * t))
+        q = launch(v.permute(1, 2, 0, 3).reshape(p, c, n * t))
         q = q.reshape(p, -1, n, t).permute(2, 0, 1, 3)
     else:
-        q = winograd_bgemm_cuda(u, v)
+        q = launch(v)
     count_launch("winograd_gemm")
     return q
 
@@ -64,11 +71,12 @@ def winograd_tensors(m_: int, k: int, device: torch.device):
 
 def conv_winograd(x, u, b, *, m_: int = 2, k: int = 3, stride: int = 1,
                   pad: int = 1, in_layout: str = "CHW",
-                  out_layout: str = "CHW"):
+                  out_layout: str = "CHW", pin=None):
     """x: (C, H, W) or (H, W, C), optionally batched; u: prepared kernels
     (alpha^2, M, C); b: (M,).  Returns (M, OH, OW) or, with
     ``out_layout="HWC"``, (OH, OW, M): the output transform's einsum
     emits HWC itself.  stride must be 1 (Winograd restriction).
+    ``pin``: the batched GEMM's (tile, splits), a tuned variant's.
     """
     if stride != 1:
         raise ValueError("Winograd convolution needs stride 1")
@@ -91,7 +99,7 @@ def conv_winograd(x, u, b, *, m_: int = 2, k: int = 3, stride: int = 1,
     # the images side by side in N: V (P, C, n * T), Q (P, M, n * T)
     V = torch.einsum("ai,ncijt,bj->abcnt", Bt, d, Bt).reshape(
         a * a, c, n * nth * ntw)
-    Q = winograd_bgemm(u, V).reshape(a, a, m, n, nth, ntw)
+    Q = winograd_bgemm(u, V, pin).reshape(a, a, m, n, nth, ntw)
     if out_layout == "HWC":
         Y = torch.einsum("ap,abmntu,bq->ntpuqm", A, Q, A)
         y = Y.reshape(n, nth * m_, ntw * m_, m)[:, :oh, :ow, :] + b

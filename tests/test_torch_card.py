@@ -699,3 +699,199 @@ class TestServingGraphs:
             assert torch.cuda.memory_allocated() < held
         finally:
             srv.close()
+
+
+# ----------------------------------------------------------------------
+# tuned variants: every launch space's configurations, pinned
+# ----------------------------------------------------------------------
+class _Spy:
+    """The arguments of every C entry called inside the block."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        orig = common.KernelLib.call
+
+        def call(lib, entry, *args):
+            self.calls.append((entry, args))
+            return orig(lib, entry, *args)
+        monkeypatch.setattr(common.KernelLib, "call", call)
+
+
+#: where each C entry receives the launch a variant pins
+_PIN_POS = {"repro_matmul_f32": (-6, -5), "repro_wino_bgemm": (-6, -5),
+            "repro_conv_direct": (-5, -4), "repro_flash_attention": (-3, -2),
+            "repro_transpose": (-2,)}
+#: one scenario per registering space, K = 512 (every tile and split
+#: count a legal plan), at batch 2
+_TUNE_SCN = {"matmul": dict(c=512, h=14, w=14, stride=1, k=1, m=96, pad=0,
+                            n=2),
+             "conv_im2col": dict(c=512, h=13, w=13, stride=1, k=1, m=96,
+                                 pad=0, n=2),
+             "winograd_gemm": dict(c=512, h=13, w=13, stride=1, k=3, m=96,
+                                   n=2),
+             "conv_direct": dict(c=512, h=13, w=13, stride=1, k=1, m=96,
+                                 pad=0, n=2)}
+
+
+@pytest.mark.gpu
+class TestTunedVariants:
+    @pytest.mark.parametrize("kernel", sorted(_TUNE_SCN))
+    def test_every_config_launches_its_pinned_plan(self, cuda, kernel,
+                                                   monkeypatch):
+        """Every configuration of the space: the C entry receives the
+        pinned tile and split count, in every layout pair of the fused
+        builder, and the output is the plain version's (on the CPU)
+        within 1e-3 of its largest magnitude."""
+        from repro_torch.autotune import spaces
+        from repro_torch.core.layouts import LAYOUT_BY_NAME
+        from repro_torch.core.primitives import to_tensor
+        from repro_torch.core.scenario import Scenario
+        space = spaces()[kernel]
+        scn = Scenario(**_TUNE_SCN[kernel])
+        rng = np.random.default_rng(31)
+        x = rng.normal(size=scn.in_shape_nchw).astype(np.float32)
+        w = (rng.normal(size=scn.weight_shape) * 0.1).astype(np.float32)
+        b = rng.normal(size=(scn.m,)).astype(np.float32)
+        spy = _Spy(monkeypatch)
+        for cfg in space.configs():
+            prim = space.make_primitive(cfg)
+            assert prim.supports(scn), prim.name
+            packed = prim.prepare(scn, w, b)
+            cpu = {k: to_tensor(v) for k, v in packed.items()}
+            dev = {k: v.to(cuda) for k, v in cpu.items()}
+            for li in (prim.l_in,) + prim.fusable_in:
+                xin = to_tensor(np.stack([LAYOUT_BY_NAME[li].to_memory(xi)
+                                          for xi in x]))
+                for lo in (prim.l_out,) + prim.fusable_out:
+                    f = prim.make_fused(scn, l_in=li, l_out=lo)
+                    spy.calls.clear()
+                    got = f(xin.to(cuda), dev)
+                    entry, args = spy.calls[-1]
+                    assert tuple(args[i] for i in _PIN_POS[entry]) == \
+                        (cfg["tile"], cfg["splits"]), (prim.name, li, lo)
+                    want = f(xin, cpu)
+                    err = float((got.cpu() - want).abs().max())
+                    assert err <= 1e-3 * float(want.abs().max()), \
+                        (prim.name, li, lo, err)
+
+    def test_kernel_only_configs(self, cuda, monkeypatch):
+        """Flash attention at every (BQ, S) and the transpose on every
+        route it runs, as the tuner times them, against their plain
+        versions (attention within 1e-5, the routes bit for bit)."""
+        from repro_torch.autotune import spaces
+        from repro_torch.core.scenario import Scenario
+        sp = spaces()
+        spy = _Spy(monkeypatch)
+        scns = [Scenario(c=4, h=64, w=64, stride=1, k=3, m=8),
+                Scenario(c=128, h=16, w=16, stride=1, k=3, m=8),
+                Scenario(c=64, h=4, w=4, stride=1, k=3, m=8)]
+        n = 0
+        for kname in ("flash_attention", "layout_transform"):
+            space = sp[kname]
+            for cfg in space.configs():
+                for scn in scns:
+                    builder = space.benchmark(scn, cfg, device=cuda)
+                    if builder is None:
+                        continue
+                    fn, args = builder()
+                    spy.calls.clear()
+                    got = fn(*args)
+                    entry, cargs = spy.calls[-1]
+                    pin = tuple(cfg.values())
+                    assert tuple(cargs[i] for i in _PIN_POS[entry]) == pin
+                    if kname == "flash_attention":
+                        want = flash_attention_ref(*args, scale=64 ** -0.5)
+                        err = float((got - want).abs().max())
+                        assert err <= 1e-5 * float(want.abs().max())
+                    else:
+                        x, = args
+                        want = x.permute(1, 2, 0).contiguous()
+                        if x.shape[0] % 8 == 0:
+                            want = want.unflatten(-1, (x.shape[0] // 8, 8))
+                        assert torch.equal(got, want)
+                    n += 1
+        assert n == 16 * 3 + 5  # routes: tile x 3, short rows, columns
+
+    def test_matmul_takes_a_plan(self, cuda):
+        """``matmul_cuda(plan=)``: any legal pinned plan gives the
+        product."""
+        from repro_torch.kernels.matmul.plan import pin_gemm
+        m, k, n = 150, 1024, 77
+        x, y, b = (torch.from_numpy(a).to(cuda) for a in
+                   _data(32, (m, k), (k, n), (n,)))
+        want = matmul_ref(x, y, b, fuse_relu=True)
+        for tile in range(4):
+            for splits in (1, 2, 4, 8):
+                plan = pin_gemm(m, n, k, tile=tile, splits=splits)
+                got = mm_kernel.matmul_cuda(x, y, b, fuse_relu=True,
+                                            plan=plan)
+                err = float((got - want).abs().max())
+                assert err <= 1e-3 * float(want.abs().max())
+
+    def test_tune_measures_on_the_card(self, cuda, tmp_path):
+        """A small real-mode tune: the profile is the card's, every item
+        measured, the variants' kernel and the competing entries'
+        launched."""
+        from repro_torch.autotune import VariantCatalog, tune
+        from repro_torch.calibrate import device_fingerprint, scenario_grid
+        common.reset_launch_counts()
+        res = tune(scenario_grid("tiny"), kernels=("matmul", "conv_im2col"),
+                   max_per_kernel=4, reps=1, min_time=1e-4,
+                   profile_path=tmp_path / "p.json")
+        counts = common.launch_counts()
+        assert res.catalog.measure == "real"
+        assert res.profile.device == device_fingerprint(cuda)
+        assert res.sweep["remaining"] == 0 and res.sweep["measured"] > 0
+        assert all(v > 0 for v in res.profile.entries.values())
+        assert counts.get("conv_im2col", 0) > 0 and \
+            counts.get("winograd_gemm", 0) > 0
+        res.catalog.save(tmp_path / "c.json")
+        assert VariantCatalog.load(tmp_path / "c.json").content_hash() == \
+            res.catalog.content_hash()
+
+
+@pytest.mark.gpu
+class TestInstrumentedNet:
+    @pytest.mark.parametrize("batch", [1, 8])
+    def test_outputs_are_the_eager_walks_bits(self, cuda, alexnet_plans,
+                                              batch):
+        """AlexNet's PBQP plan (K3 on conv3-conv5): each instrumented
+        forward gives the eager walk's bits, times every node, and
+        launches one forward's kernels."""
+        from repro_torch.core.plan import compile_plan
+        from repro_torch.obs.drift import InstrumentedNet
+        sel, params, xs = alexnet_plans
+        x = xs[0] if batch == 1 else xs
+        cnet = compile_plan(sel, params, batch=batch, jit=False)
+        inst = InstrumentedNet(cnet)
+        want = cnet(x)
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        outs, tm = inst(x)
+        assert common.launch_counts() == expected_launches(sel)
+        for k in want:
+            assert torch.equal(outs[k], want[k]), k
+        assert {n.id for n in sel.net.conv_nodes()} <= set(tm["node"])
+        assert set(tm["edge"]) == set(sel.conversions)
+        assert all(t > 0 for t in tm["node"].values())
+
+    def test_recalibration_loop_on_the_card(self, cuda):
+        """The loop on a small tower from an empty profile of the card:
+        it ends within its rounds, and the profile's hash moves if and
+        only if it wrote an entry."""
+        from repro_torch.calibrate import HardwareProfile
+        from repro_torch.obs.drift import recalibration_loop
+        from repro_torch.serving.towers import conv_stack
+        net = conv_stack((3, 32, 32), depth=2, width=16)
+        prof = HardwareProfile.new()
+        h0 = prof.content_hash()
+        x = np.random.default_rng(33).normal(size=(3, 32, 32)).astype(
+            np.float32)
+        res = recalibration_loop(
+            net, net.init_params(0), x, prof, runs=2, max_rounds=4,
+            allowed=("direct_lax_chw_chw_oihw", "wino2d_f2x3_chw",
+                     "pallas_im2col_chw"))
+        assert 1 <= len(res["rounds"]) <= 4
+        assert (prof.content_hash() != h0) == (len(prof) > 0)
+        det = res["detector"]
+        assert det.runs == 2 and det.entries

@@ -23,7 +23,9 @@ VERBATIM = ["core/scenario.py", "core/layouts.py",
             "serving/bucketing.py", "serving/metrics.py",
             "serving/towers.py", "serving/plan_cache.py",
             "reliability/errors.py", "reliability/faults.py",
-            "reliability/fallback.py", "reliability/__init__.py"]
+            "reliability/fallback.py", "reliability/__init__.py",
+            "autotune/space.py", "autotune/prune.py", "autotune/generate.py",
+            "autotune/catalog.py", "autotune/__init__.py"]
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -79,7 +81,18 @@ def test_fresh_import_loads_no_jax_and_no_reference():
                 "repro_torch.kernels.winograd_gemm.bench",
                 "repro_torch.serving.server", "repro_torch.serving.plan_cache",
                 "repro_torch.reliability.quarantine",
-                "repro_torch.reliability.fallback"}
+                "repro_torch.reliability.fallback",
+                "repro_torch.autotune.space", "repro_torch.autotune.prune",
+                "repro_torch.autotune.generate",
+                "repro_torch.autotune.measure",
+                "repro_torch.autotune.catalog", "repro_torch.autotune.tuner",
+                "repro_torch.launch.tune", "repro_torch.obs.drift",
+                "repro_torch.kernels.matmul.space",
+                "repro_torch.kernels.conv_im2col.space",
+                "repro_torch.kernels.winograd_gemm.space",
+                "repro_torch.kernels.conv_direct.space",
+                "repro_torch.kernels.flash_attention.space",
+                "repro_torch.kernels.layout_transform.space"}
     assert expected <= set(rep["modules"])
 
 

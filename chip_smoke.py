@@ -75,6 +75,24 @@ checkout of the repository.  Phases, each of which raises on failure:
    round's eager walk's bits, every round's plan must agree with SUM2D,
    and the profile's hash must change if and only if an entry was
    written; ``converged`` is printed, not gated.
+11. lm: TinyLlama-1.1B at full width and depth (f32, random weights from
+   seed 0) served by ``ServeLoop`` (``attn_impl="flash"``, 4 slots,
+   ``max_seq`` 2048) with the conv tower's ``PlanServer`` (captured
+   graphs) behind its ``ContinuousScheduler``: 8 requests of 7 to 1500
+   prompt tokens, 16 new tokens each, every second one with an image;
+   served cold, then warm.  Each run must launch flash attention (K6)
+   exactly once per layer and prefill (decode launches none); K6 at the
+   run's layer-0 prefill shapes (T = 7, 128, 1024, 1504) within
+   ``TOL_ATTN`` of its plain version; every request's flash prefill
+   logits within ``NET_REL`` of the plain path's largest; every served
+   token the argmax of a one-request offline ``prefill`` +
+   ``decode_step`` on the served history wherever the top-2 margin
+   exceeds ``NET_REL`` of the largest logit; and ``python -m
+   repro_torch.launch.serve`` (its ``main``, the reference driver's
+   scaled-down config, ``--attn-impl flash``) must exit 0 with its plan
+   cache line.  Printed: prefill host ms per prompt, admissions and
+   decode ticks on the host clock, tokens/s, K6 at T = 1024 beside SDPA
+   and its bound, a decode tick's device busy time under the profiler.
 
 Plans are compared at every conv's output, the pre-softmax logits and
 the probabilities, each within 1e-3 of the reference's largest
@@ -93,7 +111,9 @@ resumed ``tune``) is one path, ``tune``, which must launch every kernel;
 its tuned plans are paths as phases 3-7's.  Phase 10's loop is one path,
 ``drift``: (1 + runs) forwards' launches per round.  The last lines are
 a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+limit, and ``{"ok": true, "device": {...}}``.  Phase 11's served runs
+are paths too (``lm_serve``, ``lm_serve_warm``), as is its CLI run
+(``lm_cli``); K6's ``launches`` are ``lm_serve``'s.
 """
 from __future__ import annotations
 
@@ -201,11 +221,12 @@ def cuda_ms(torch, fn, reps: int = 5, inner: int = 20) -> float:
 
 
 def device_profile(torch, fn, calls: int = 3):
-    """(wall ms, device-busy ms, top device activities) per call of
-    ``fn`` over ``calls`` calls under ``torch.profiler``; device-busy is
-    None where the profiler recorded no device time.  Busy time sums
-    the device-side events only (kernels and copies, one stream), not
-    the host operators that launched them."""
+    """(wall ms, device-busy ms, top device activities, device events)
+    per call of ``fn`` over ``calls`` calls under ``torch.profiler``;
+    device-busy is None where the profiler recorded no device time.  Busy
+    time sums the device-side events only (kernels and copies, one
+    stream), not the host operators that launched them; device events
+    counts them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -220,8 +241,10 @@ def device_profile(torch, fn, calls: int = 3):
     rows = [(e.self_device_time_total / 1e3 / calls, e.key)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(t for t, _ in rows)
+    events = sum(e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / calls
     top = sorted((r for r in rows if r[0] > 0), reverse=True)[:8]
-    return wall, (busy if busy > 0 else None), top
+    return wall, (busy if busy > 0 else None), top, events
 
 
 class KernelReport:
@@ -239,6 +262,8 @@ class KernelReport:
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.ops_s = self.bytes_s = self.bound_s = 0.0
         self.batch8 = None  # K3: a second report, its times at batch 8
+        #: K6: a second report, its times at TinyLlama's prefill shape
+        self.lm_prefill = None
 
     def same_bits(self, fn, what):
         """Two calls give the same bits: the split-K sum has a fixed
@@ -286,13 +311,16 @@ class KernelReport:
         """``paths``: each path's launch counts, in the order run.  The
         kernel's ``launches`` are those of the first plan path that ran
         it (the PBQP main path where it picks the kernel, else the pinned
-        plan at batch 1 that puts it there); for the kernels that no plan
-        runs (K5, K6), the sum over the calibration path's kernel items,
-        one call each.  Every path's own count is listed beside, and
-        K3's times at batch 8 (``batch8``)."""
+        plan at batch 1 that puts it there; K6: phase 11's served run,
+        ``lm_serve``); for the kernels that no path runs (K5), the sum
+        over the calibration path's kernel items, one call each.  Every
+        path's own count is listed beside, K3's times at batch 8
+        (``batch8``) and K6's at TinyLlama's prefill shape
+        (``lm_prefill``)."""
         by_path = {p: c[self.name] for p, c in paths.items()
                    if c.get(self.name)}
-        first = next((p for p in by_path if p.endswith("_b1")), None)
+        first = next((p for p in by_path
+                      if p.endswith("_b1") or p == "lm_serve"), None)
         if first:
             launches = by_path[first]
         else:
@@ -308,11 +336,12 @@ class KernelReport:
                  "bound_by": ("operations" if self.ops_s >= self.bytes_s
                               else "bytes"),
                  "library_ms": self.library_ms}
-        if self.batch8 is not None:
-            b8 = self.batch8
-            entry["batch8"] = {"ms": b8.ms, "plain_ms": b8.plain_ms,
-                               "library_ms": b8.library_ms,
-                               "bound_ms": b8.bound_s * 1e3}
+        for key in ("batch8", "lm_prefill"):
+            sub = getattr(self, key)
+            if sub is not None:
+                entry[key] = {"ms": sub.ms, "plain_ms": sub.plain_ms,
+                              "library_ms": sub.library_ms,
+                              "bound_ms": sub.bound_s * 1e3}
         return entry
 
 
@@ -1149,14 +1178,14 @@ def serving_phase(torch, dev, xs, sum2d_prob, paths):
                   f"{k[len('execute['):-1]} {v['p50'] * 1e3:.4f} ms"
                   for k, v in sorted(ph.items())
                   if k.startswith("execute[")))
-    wall, busy, _ = device_profile(torch, lambda: srv.infer(xs[0]))
+    wall, busy, _, _ = device_profile(torch, lambda: srv.infer(xs[0]))
     print(f"  profile, one served infer at batch 1 (jit=True): wall "
           f"{wall:.4f} ms, device busy "
           f"{'not measured' if busy is None else f'{busy:.4f} ms'} [{card}]")
     x1 = torch.from_numpy(xs[0]).to(dev)
     for what, cn in (("replayed graph", srv.compiled_for(shape)),
                      ("eager walk", esrv.compiled_for(shape))):
-        wall, busy, top = device_profile(torch, lambda: cn(x1))
+        wall, busy, top, _ = device_profile(torch, lambda: cn(x1))
         share = "not measured" if busy is None else \
             f"{max(0.0, 1 - busy / wall):.4f}"
         print(f"  profile, one batch-1 forward, {what}: wall {wall:.4f} ms, "
@@ -1695,6 +1724,271 @@ def drift_phase(torch, dev, paths, net, params, x1, sum2d1, taps_,
               f"{' flagged' if row['flagged'] else ''}")
 
 
+#: phase 11: TinyLlama-1.1B at full width and depth (f32, random
+#: weights from seed 0) served through ``ServeLoop`` and its
+#: ``ContinuousScheduler``: 8 requests of these prompt lengths, 16 new
+#: tokens each, every second request (the odd ones) with an image of
+#: 12-40 px for the conv tower; K6 is checked against its plain version
+#: at the prefill shapes of these prompt lengths
+LM_ARCH = "tinyllama-1.1b"
+LM_PROMPTS = (7, 33, 128, 257, 512, 1000, 1024, 1500)
+LM_MAX_NEW, LM_MAX_BATCH, LM_MAX_SEQ = 16, 4, 2048
+LM_K6_CHECK = (7, 128, 1024, 1500)
+#: the serve CLI at the reference driver's scaled-down config
+LM_CLI_ARGS = ["--requests", "6", "--max-new", "4", "--vision-every", "2",
+               "--attn-impl", "flash"]
+
+
+def lm_phase(torch, F, dev, paths, attn_rpt):
+    """Phase 11: the LM serving path on the card.  ``attn_rpt``: K6's
+    report, which gains the served run's launches and the TinyLlama
+    prefill shape's times (``lm_prefill``)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.costs import AnalyticCostModel
+    from repro_torch.kernels.common import (launch_counts,
+                                            reset_launch_counts, true_f32)
+    from repro_torch.kernels.flash_attention import (attention_plan,
+                                                     flash_attention,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ref)
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import (ModelRuntime, ShardingPlan, decode_step,
+                                    init_params, param_count, prefill)
+    from repro_torch.models.common import rms_norm, rope
+    from repro_torch.runtime import Request, ServeLoop
+    from repro_torch.serving import BucketPolicy, PlanServer, conv_tower
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.float32, dev)
+    sync(torch, dev)
+    n_par = param_count(cfg)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"vocab {cfg.vocab}: {n_par} parameters in f32 "
+          f"({n_par * 4 / 1e9:.2f} GB), made in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def requests():
+        rng = np.random.default_rng(11)
+        out = []
+        for i, n in enumerate(LM_PROMPTS):
+            pixels = None
+            if i % 2 == 1:
+                hw = int(rng.integers(12, 41))
+                pixels = rng.normal(size=(3, hw, hw)).astype(np.float32)
+            out.append(Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, size=n).astype(np.int32),
+                max_new_tokens=LM_MAX_NEW, pixels=pixels))
+        return out
+
+    server = PlanServer(lambda s: conv_tower(s, depth=2, width=8),
+                        AnalyticCostModel(),
+                        policy=BucketPolicy(min_hw=8, max_hw=128),
+                        device=dev)
+    plain = ShardingPlan()
+    flash_rt, xla_rt = ModelRuntime(attn_impl="flash"), ModelRuntime()
+    loop = ServeLoop(cfg, params, max_batch=LM_MAX_BATCH,
+                     max_seq=LM_MAX_SEQ, rt=flash_rt, plan_server=server,
+                     device=dev)
+    # host clock per admission (vision, prefill) and per decode tick: each
+    # ends on a copy to the host, so each call's time includes its device
+    # work
+    spent = {"admit": [], "tick": []}
+
+    def timed(name, fn):
+        def call():
+            t0 = time.perf_counter()
+            fn()
+            spent[name].append(time.perf_counter() - t0)
+        return call
+
+    loop._admit = timed("admit", loop._admit)
+    loop._tick = timed("tick", loop._tick)
+    want_k6 = cfg.n_layers * len(LM_PROMPTS)
+    runs = {}
+    try:
+        # the served runs, each one path: cold (first calls, the vision
+        # buckets' solves and captures), then the same requests warm
+        for name in ("lm_serve", "lm_serve_warm"):
+            reqs = requests()
+            for v in spent.values():
+                v.clear()
+            sync(torch, dev)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loop.run(reqs)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            paths[name] = counts = launch_counts()
+            stats = loop.scheduler.stats()
+            n_tok = sum(len(r.tokens) for r in reqs)
+            check(all(r.done and len(r.tokens) == LM_MAX_NEW for r in reqs),
+                  f"lm: not every request served {LM_MAX_NEW} tokens")
+            print(f"  path {name}: launches {counts}")
+            check(counts.get(attn_rpt.name) == want_k6,
+                  f"lm: {attn_rpt.name} launched {counts.get(attn_rpt.name)} "
+                  f"times on {name}, expected {cfg.n_layers} per prefill = "
+                  f"{want_k6} (decode launches none)")
+            ticks = np.asarray(spent["tick"]) * 1e3
+            print(f"  {name}: {len(reqs)} requests, {n_tok} tokens in "
+                  f"{wall:.4f} s (host clock): {n_tok / wall:.2f} tokens/s; "
+                  f"admissions {sum(spent['admit']):.4f} s "
+                  f"({len(spent['admit'])} calls), {len(ticks)} decode ticks "
+                  f"{ticks.sum() / 1e3:.4f} s (median {np.median(ticks):.4f} "
+                  f"ms); vision {stats['requests']} images over "
+                  f"{stats['buckets']} buckets, {stats['solves']} solves, "
+                  f"{stats['compiles']} compiles, {stats['sched_batches']} "
+                  f"scheduler batches; vision kernel launches "
+                  f"{({k: v for k, v in counts.items() if k != attn_rpt.name}) or 'none'}")
+            runs[name] = reqs
+    finally:
+        loop.close()
+        server.close()
+    reqs = runs["lm_serve"]
+    same = [a.tokens == b.tokens for a, b in zip(reqs, runs["lm_serve_warm"])]
+    print(f"  the warm run served the cold run's tokens for {sum(same)} of "
+          f"{len(same)} requests")
+
+    # ---- K6 against its plain version at the run's prefill shapes ----
+    hd = cfg.resolved_head_dim
+    blk = params["blocks"]["layer0"]
+    k6_check = [r for r in reqs if LM_PROMPTS[r.rid] in LM_K6_CHECK]
+    qkv = {}
+    for r in k6_check:
+        tok = torch.from_numpy(r.prompt.astype(np.int64))[None].to(dev)
+        with true_f32():
+            x = rms_norm(params["embed"][tok], blk["norm1"][0], cfg.norm_eps)
+            pos = torch.arange(tok.shape[1], device=dev)[None]
+            q = rope(torch.einsum("btd,dhk->bthk", x, blk["attn"]["wq"][0]),
+                     pos, cfg.rope_theta)
+            k = rope(torch.einsum("btd,dhk->bthk", x, blk["attn"]["wk"][0]),
+                     pos, cfg.rope_theta)
+            v = torch.einsum("btd,dhk->bthk", x, blk["attn"]["wv"][0])
+            kw = dict(scale=hd ** -0.5, causal=True)
+            got = flash_attention(q, k, v, layout="LHD", **kw)
+            attn_rpt.compare(got, flash_attention_ref(q, k, v, seq_major=True,
+                                                      **kw), TOL_ATTN,
+                             f"TinyLlama layer 0 prefill, T = {q.shape[1]}")
+        qkv[q.shape[1]] = (q, k, v)
+        print(f"  {attn_rpt.name} TinyLlama layer 0 prefill q "
+              f"{tuple(q.shape)} k/v {tuple(k.shape)} causal: within "
+              f"{TOL_ATTN} of the plain version [{attention_plan(q, k, v, seq_major=True).describe()}]")
+
+    # ---- the served model against the plain path and an offline decode ----
+    prefill_ms = {}
+    for r in sorted(reqs, key=lambda r: len(r.prompt)):
+        t = len(r.prompt)
+        tok = torch.from_numpy(r.prompt.astype(np.int64))[None].to(dev)
+        with true_f32():
+            lx, cache = prefill(cfg, params, {"tokens": tok}, plain, xla_rt,
+                                max_seq=t + LM_MAX_NEW)
+            del cache
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            lf, cache = prefill(cfg, params, {"tokens": tok}, plain,
+                                flash_rt, max_seq=t + LM_MAX_NEW)
+            sync(torch, dev)
+            prefill_ms[t] = (time.perf_counter() - t0) * 1e3
+            lx, lf = lx[0, -1], lf[0, -1]
+            scale = float(lx.abs().max())
+            err = float((lf - lx).abs().max())
+            check(err <= NET_REL * scale,
+                  f"lm request {r.rid} (T = {t}): flash prefill logits "
+                  f"differ from the plain path's by {err:.3e} > "
+                  f"{NET_REL} x {scale:.3e}")
+            # teacher-forced offline greedy decode on the served tokens:
+            # each step's argmax must be the served token wherever the
+            # top-2 margin is clear of the tolerance
+            logits, clear, pos = lf, 0, t
+            for j, served in enumerate(r.tokens):
+                top2 = torch.topk(logits, 2).values
+                margin = float(top2[0] - top2[1])
+                mine = int(torch.argmax(logits))
+                if margin > NET_REL * float(logits.abs().max()):
+                    clear += 1
+                    check(mine == served,
+                          f"lm request {r.rid}: step {j} served {served}, "
+                          f"offline decode {mine} at a clear margin "
+                          f"{margin:.3e}")
+                elif mine != served:
+                    print(f"  request {r.rid} step {j}: served {served}, "
+                          f"offline {mine}, margin {margin:.3e} within "
+                          f"the tolerance")
+                if j + 1 < len(r.tokens):
+                    lg, cache = decode_step(
+                        cfg, params, cache,
+                        torch.tensor([[served]], device=dev), pos, plain,
+                        flash_rt)
+                    logits, pos = lg[0, 0], pos + 1
+            del cache
+        print(f"  request {r.rid}: T = {t}{' (4 image tokens)' if LM_PROMPTS[r.rid] != t else ''}, flash "
+              f"prefill {prefill_ms[t]:.4f} ms (host clock), logits within "
+              f"{err / max(scale, 1e-30):.3e} of the plain path's largest, "
+              f"{clear}/{len(r.tokens)} steps at a clear margin, all equal "
+              f"to the offline decode")
+
+    # ---- numbers: K6 at T = 1024, the decode tick, the serve CLI ----
+    q, k, v = qkv[1024]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(scale=hd ** -0.5, causal=True, seq_major=True)
+    lm = KernelReport(attn_rpt.name, attn_rpt.source, attn_rpt.replaces)
+    t_ = q.shape[1]
+    with true_f32():
+        lm.time(torch, f"TinyLlama prefill {tuple(q.shape)} causal",
+                lambda: flash_attention_cuda(q, k, v, **kw),
+                lambda: flash_attention_ref(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True),
+                4.0 * t_ * (t_ + 1) / 2 * hd * cfg.n_heads,
+                4.0 * (2 * q.numel() + k.numel() + v.numel()),
+                attention_plan(q, k, v, seq_major=True))
+    attn_rpt.lm_prefill = lm
+    toks = torch.tensor([[r.tokens[-1]] for r in reqs[:LM_MAX_BATCH]],
+                        device=dev)
+    pos = torch.tensor([len(r.prompt) + LM_MAX_NEW - 1
+                        for r in reqs[-LM_MAX_BATCH:]], device=dev)
+    with true_f32():
+        tick_ms, busy, top, events = device_profile(
+            torch, lambda: decode_step(cfg, params, loop.cache, toks, pos,
+                                       plain, flash_rt), calls=5)
+    floor = n_par * 4 / HBM_BW * 1e3
+    share = "not measured" if busy is None else \
+        f"{max(0.0, 1 - busy / tick_ms):.4f}"
+    print(f"  decode tick ({LM_MAX_BATCH} slots, max_seq {LM_MAX_SEQ}) "
+          f"under torch.profiler: wall {tick_ms:.4f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} ms'}, idle "
+          f"share {share}, {events:.0f} device events (floor for reading "
+          f"the f32 weights once: {floor:.4f} ms)")
+    for tm, key in top:
+        print(f"    {tm:9.4f} ms  {key[:90]}")
+    del loop
+    small = get_config(LM_ARCH).scaled_down()
+    buf = io.StringIO()
+    sync(torch, dev)
+    reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(LM_CLI_ARGS)
+    sync(torch, dev)
+    paths["lm_cli"] = counts = launch_counts()
+    out = buf.getvalue()
+    line = next((ln for ln in out.splitlines()
+                 if ln.startswith("plan cache:")), None)
+    check(rc == 0 and line is not None,
+          f"lm: the serve CLI exited {rc} without its plan cache line:\n"
+          f"{out[-2000:]}")
+    check(counts.get(attn_rpt.name) == small.n_layers * 6,
+          f"lm: the serve CLI launched {counts.get(attn_rpt.name)} "
+          f"{attn_rpt.name}, expected {small.n_layers} per prefill")
+    print(f"  python -m repro_torch.launch.serve {' '.join(LM_CLI_ARGS)}: "
+          f"exit {rc}, path lm_cli: launches {counts}")
+    print(f"  {next(ln for ln in out.splitlines() if ln.startswith('served'))}")
+    print(f"  {line}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1811,7 +2105,7 @@ def main() -> int:
                                                           reps=20)
     for what, cn, x in (("PBQP batch 1", opt, x1), ("PBQP batch 8", opt8, x8),
                         ("SUM2D batch 1", base, x1)):
-        wall, busy, top = device_profile(torch, lambda: cn(x))
+        wall, busy, top, _ = device_profile(torch, lambda: cn(x))
         share = "not measured" if busy is None else \
             f"{max(0.0, 1 - busy / wall):.4f}"
         print(f"  profile {what}: wall {wall:.4f} ms/forward, device busy "
@@ -1911,6 +2205,14 @@ def main() -> int:
           f"profile, threshold {DRIFT_THRESHOLD}, runs {DRIFT_RUNS}) ==")
     drift_phase(torch, dev, paths, net, params, x1, sum2d[1], t_,
                 calib_prof)
+    # ---- 11. the LM serving path: TinyLlama-1.1B with K6 in prefill ----
+    print(f"== lm: {LM_ARCH} at full width and depth through ServeLoop "
+          f"(attn_impl=flash, {LM_MAX_BATCH} slots, max_seq {LM_MAX_SEQ}) "
+          f"and its ContinuousScheduler ==")
+    t0 = time.perf_counter()
+    lm_phase(torch, F, dev, paths,
+             next(r for r in reports if r.name == "flash_attention"))
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     for r in reports:
         check(not r.on_path or any(c.get(r.name) for c in paths.values()),
               f"kernel {r.name} never launched on a path")

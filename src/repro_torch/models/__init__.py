@@ -1,0 +1,19 @@
+"""LM-family model zoo of the port (PyTorch, a loop over stacked
+superblocks): the dense decoders.  The MoE, SSM, hybrid, encoder-decoder
+and VLM paths come with the ROADMAP's slice F2, training (``loss_fn``)
+with slice F3."""
+from .model import (
+    ModelRuntime, active_param_count, decode_step, forward_train,
+    init_cache, init_params, param_count, param_defs, param_pspecs,
+    params_from_numpy, prefill,
+)
+from .sharding import (
+    MEGATRON_RULES, REPLICATED_RULES, Rules, ShardingPlan,
+)
+
+__all__ = [
+    "ModelRuntime", "decode_step", "forward_train", "init_cache",
+    "init_params", "param_count", "active_param_count", "param_defs",
+    "param_pspecs", "params_from_numpy", "prefill",
+    "Rules", "ShardingPlan", "MEGATRON_RULES", "REPLICATED_RULES",
+]

@@ -1,0 +1,251 @@
+"""Shared model components: norms, rotary embeddings, GQA attention
+(train/prefill/decode paths, sliding window, softcap).
+
+Port of the reference's ``models/common.py``.  Attention is itself a
+*primitive choice* at this level: ``attn_impl`` selects between the
+plain einsum path ("xla", named after the reference's) and the flash
+kernel (K6, ``kernels.flash_attention``, the hand-written CUDA kernel on
+a card), which every prefill takes with ``attn_impl="flash"``.  Decode
+keeps the plain path, as the reference does.
+
+Decode here is batched over slots that sit at different positions:
+``cache_index`` holds one position per batch row (or one for all), and
+each row writes its new key and value at its own index and attends to
+the keys up to it.  The reference decodes one slot at a time under
+``vmap``; row for row the arithmetic is the same.  The new key and value
+are written into the cache tensors in place.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .sharding import PDef, ShardingPlan
+
+NEG_INF = -1e30
+
+
+def rms_norm(x, w, eps: float = 1e-5):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_freqs(half: int, theta: float, device: torch.device):
+    """The rotary frequencies, computed in f64 by numpy and rounded to
+    f32, as the reference's meet its f32 positions; one copy per device
+    (read-only; no caller writes them)."""
+    return torch.from_numpy(1.0 / (theta ** (np.arange(0, half) / half))).to(
+        device=device, dtype=torch.float32)
+
+
+def rope(x, positions, theta: float):
+    """x: (..., T, H, D even); positions: (..., T).  The angles are f32
+    products of f32 positions and f32 frequencies, as in the reference."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = _rope_freqs(half, float(theta), x.device)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., T, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+def attention_defs(cfg, d_model: Optional[int] = None) -> Dict[str, PDef]:
+    d = d_model or cfg.d_model
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": PDef((d, cfg.n_heads, hd), ("d_model", "heads", "head_dim")),
+        "wk": PDef((d, cfg.n_kv_heads, hd),
+                   ("d_model", "kv_heads", "head_dim")),
+        "wv": PDef((d, cfg.n_kv_heads, hd),
+                   ("d_model", "kv_heads", "head_dim")),
+        "wo": PDef((cfg.n_heads, hd, d), ("heads", "head_dim", "d_model")),
+    }
+
+
+def _mask(lq, lk, *, causal: bool, window: int, q_offset=0,
+          device=None):
+    """(lq, lk) mask, or (B, 1, 1, lq, lk) when ``q_offset`` is a
+    tensor of one query offset per batch row."""
+    qpos = torch.arange(lq, device=device)[:, None]
+    kpos = torch.arange(lk, device=device)[None, :]
+    if torch.is_tensor(q_offset) and q_offset.dim() > 0:
+        qpos = q_offset.reshape(-1, 1, 1, 1, 1) + qpos
+    else:
+        qpos = qpos + q_offset
+    m = torch.ones(torch.broadcast_shapes(qpos.shape, kpos.shape),
+                   dtype=torch.bool, device=device)
+    if causal:
+        m = m & (qpos >= kpos)
+    if window > 0:
+        m = m & (qpos - kpos < window)
+    return m
+
+
+def dot_attention(q, k, v, *, scale, causal, window, softcap, q_offset=0,
+                  kv_valid=None):
+    """q: (B, Tq, H, D); k, v: (B, Tk, Hkv, D) — the plain einsum path.
+
+    ``q_offset`` and ``kv_valid`` are ints or (B,) tensors (one per
+    batch row: the decode slots' positions)."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, tq, hkv, g, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    m = _mask(tq, tk, causal=causal, window=window, q_offset=q_offset,
+              device=q.device)
+    if kv_valid is not None:
+        kpos = torch.arange(tk, device=q.device)
+        if torch.is_tensor(kv_valid) and kv_valid.dim() > 0:
+            valid = kpos < kv_valid.reshape(-1, 1, 1, 1, 1)
+        else:
+            valid = kpos < kv_valid
+        m = m & valid
+    s = torch.where(m, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(b, tq, h, d).to(q.dtype)
+
+
+def chunked_causal_attention(q, k, v, *, scale, softcap, chunk: int = 0):
+    """Causal attention computing only the lower-triangular chunk pairs.
+
+    The plain-path analogue of flash attention's fully-masked-block skip:
+    query chunk i attends to KV [0, (i+1)*chunk) only, so score FLOPs
+    drop from T^2 to T^2/2 (+ diagonal overhead).
+    """
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    if chunk <= 0:
+        # 4 chunks, as the reference picks
+        chunk = max(512, t // 4)
+    nc = max(t // chunk, 1)
+    chunk = t // nc
+    outs = []
+    for i in range(nc):
+        qi = q[:, i * chunk:(i + 1) * chunk]
+        kv_len = (i + 1) * chunk
+        ki = k[:, :kv_len]
+        vi = v[:, :kv_len]
+        qg = qi.reshape(b, chunk, hkv, g, d)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                         ki.float()) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        qpos = i * chunk + torch.arange(chunk, device=q.device)[:, None]
+        kpos = torch.arange(kv_len, device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", pr, vi.float())
+        outs.append(o.reshape(b, chunk, h, d).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention(cfg, p, x, *, positions, plan: ShardingPlan,
+              causal: bool = True, window: int = 0,
+              kv_cache: Optional[Tuple] = None,
+              cache_index=None,
+              attn_impl: str = "xla"):
+    """Full self-attention layer: projections + rope + attention + out
+    proj.  (The reference's cross-attention source ``xk`` comes with the
+    encoder-decoder path, slice F2.)
+
+    kv_cache: (k_cache, v_cache) of (B, S, Hkv, D); with ``cache_index``
+    given (a (B,) or (1,) integer tensor: each row's position), the new
+    k/v are written in place at each row's index (decode) and attention
+    runs against the cache.  Returns (out, new_cache).
+    """
+    hd = cfg.resolved_head_dim
+    scale = hd ** -0.5
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions if cache_index is None else
+             cache_index[..., None], cfg.rope_theta)
+    q = plan.constrain(q, "batch", "seq", "heads", "head_dim")
+    k = plan.constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = plan.constrain(v, "batch", "seq", "kv_heads", "head_dim")
+
+    new_cache = None
+    kv_valid = None
+    q_offset = 0
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        if cache_index is not None:
+            # decode: write each row's new kv at its own index
+            idx = cache_index.reshape(-1).to(torch.long).expand(
+                ck.shape[0])
+            rows = torch.arange(ck.shape[0], device=ck.device)
+            ck[rows, idx] = k[:, 0].to(ck.dtype)
+            cv[rows, idx] = v[:, 0].to(cv.dtype)
+            k, v = ck, cv
+            kv_valid = idx + 1
+            q_offset = idx
+            causal = False  # masking handled via kv_valid
+            new_cache = (ck, cv)
+        else:
+            # prefill: the freshly-computed prompt k/v ARE the cache
+            new_cache = (k, v)
+
+    if attn_impl == "flash" and cache_index is None:
+        from ..kernels.flash_attention import flash_attention
+        # sequence-major, as the projections leave q, k and v
+        o = flash_attention(q, k, v, scale=scale, causal=causal,
+                            window=window, softcap=cfg.attn_softcap,
+                            layout="LHD")
+    elif (attn_impl == "xla_chunked" and cache_index is None and causal
+          and window == 0 and q.shape[1] >= 1024):
+        o = chunked_causal_attention(q, k, v, scale=scale,
+                                     softcap=cfg.attn_softcap)
+    else:
+        o = dot_attention(q, k, v, scale=scale, causal=causal,
+                          window=window, softcap=cfg.attn_softcap,
+                          q_offset=q_offset, kv_valid=kv_valid)
+    o = plan.constrain(o, "batch", "seq", "heads", "head_dim")
+    out = torch.einsum("bthk,hkd->btd", o, p["wo"])
+    return plan.constrain(out, "batch", "seq", "d_model"), new_cache
+
+
+# ----------------------------------------------------------------------
+def ffn_defs(cfg, d_model: Optional[int] = None, gated: bool = True):
+    d = d_model or cfg.d_model
+    f = cfg.d_ff
+    defs = {
+        "w1": PDef((d, f), ("d_model", "d_ff")),
+        "w2": PDef((f, d), ("d_ff", "d_model")),
+    }
+    if gated:
+        defs["w3"] = PDef((d, f), ("d_model", "d_ff"))
+    return defs
+
+
+def ffn(p, x, plan: ShardingPlan, act=F.silu):
+    h = torch.einsum("btd,df->btf", x, p["w1"])
+    if "w3" in p:
+        h = act(h) * torch.einsum("btd,df->btf", x, p["w3"])
+    else:
+        h = act(h)
+    h = plan.constrain(h, "batch", "seq", "d_ff")
+    out = torch.einsum("btf,fd->btd", h, p["w2"])
+    return plan.constrain(out, "batch", "seq", "d_model")

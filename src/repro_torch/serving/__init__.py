@@ -12,13 +12,13 @@ shapes:
   CUDA graph's capture on the card -> execute), the batched
   :meth:`PlanServer.infer_batch` path and the micro-batching admission
   queue, with hit/miss/latency counters in :mod:`.metrics`;
+* :mod:`.scheduler`  — :class:`ContinuousScheduler`: continuous
+  batching with per-request deadlines, SLO-aware partial launches and
+  elastic worker scaling (``runtime.elastic``);
 * :mod:`.towers`     — shape-parameterized demo nets for tests/examples.
 
-``bucketing``, ``metrics``, ``plan_cache`` and ``towers`` are verbatim
-copies of the reference's.  The reference also exports
-``ContinuousScheduler``; it is not ported yet: its default
-``ElasticController`` is built on the LM stack's sharding rules
-(``models/sharding.py``), which come with the ROADMAP's slice F.
+``bucketing``, ``metrics``, ``plan_cache``, ``scheduler`` and ``towers``
+are verbatim copies of the reference's.
 """
 from .bucketing import (
     BucketPolicy, bucket_key, bucket_scenario, bucket_shape, round_dim,
@@ -28,6 +28,7 @@ from .plan_cache import (
     LRU, PlanDiskCache, plan_key, selection_from_payload,
     selection_to_payload,
 )
+from .scheduler import ContinuousScheduler
 from .server import PlanServer
 from .towers import (bottleneck_tower, conv_stack, conv_tower,
                      uniform_stack)
@@ -38,6 +39,7 @@ __all__ = [
     "ServingCounters",
     "LRU", "PlanDiskCache", "plan_key",
     "selection_from_payload", "selection_to_payload",
+    "ContinuousScheduler",
     "PlanServer", "conv_tower", "conv_stack", "bottleneck_tower",
     "uniform_stack",
 ]

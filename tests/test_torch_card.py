@@ -895,3 +895,127 @@ class TestInstrumentedNet:
         assert (prof.content_hash() != h0) == (len(prof) > 0)
         det = res["detector"]
         assert det.runs == 2 and det.entries
+
+
+# ----------------------------------------------------------------------
+# the LM serving path: K6 in every prefill, ServeLoop, ContinuousScheduler
+# ----------------------------------------------------------------------
+def _lm_params(cfg, seed=0):
+    from repro_torch.models import init_params
+    return init_params(cfg, seed, torch.float32)
+
+
+@pytest.mark.gpu
+class TestLMServing:
+    @pytest.mark.parametrize("t", [1, 7, 1024, 1500])
+    @pytest.mark.parametrize("hq,hkv", [(32, 4), (4, 2)])
+    def test_flash_attention_at_prefill_shapes(self, cuda, hq, hkv, t):
+        """K6 as the LM's prefill calls it: sequence-major q (1, T, Hq,
+        64) over k, v (1, T, Hkv, 64), causal, GQA 8 (TinyLlama) and 2
+        (its scaled-down config), a one-token prompt included."""
+        q, k, v = (torch.from_numpy(a).to(cuda) for a in _data(
+            19, (1, t, hq, 64), (1, t, hkv, 64), (1, t, hkv, 64)))
+        kw = dict(scale=0.125, causal=True)
+        common.reset_launch_counts()
+        got = flash_attention(q, k, v, layout="LHD", **kw)
+        assert common.launch_counts() == {"flash_attention": 1}
+        want = flash_attention_ref(q, k, v, seq_major=True, **kw)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+    def test_full_width_layer_prefill_flash_against_plain(self, cuda):
+        """One TinyLlama-1.1B layer at full width: the prefill's logits
+        with the flash kernel within 1e-3 of the plain path's largest
+        magnitude, and the same cache; one K6 launch per layer."""
+        from dataclasses import replace
+
+        from repro_torch.configs import get_config
+        from repro_torch.models import ModelRuntime, ShardingPlan, prefill
+        cfg = replace(get_config("tinyllama-1.1b"), n_layers=1)
+        params = _lm_params(cfg)
+        tok = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab, size=(1, 300))).to(cuda)
+        lx, cx = prefill(cfg, params, {"tokens": tok}, ShardingPlan(),
+                         ModelRuntime(), max_seq=320)
+        common.reset_launch_counts()
+        lf, cf = prefill(cfg, params, {"tokens": tok}, ShardingPlan(),
+                         ModelRuntime(attn_impl="flash"), max_seq=320)
+        assert common.launch_counts() == {"flash_attention": 1}
+        assert float((lf - lx).abs().max()) <= \
+            1e-3 * float(lx.abs().max())
+        assert torch.equal(cf["layer0"]["k"], cx["layer0"]["k"])
+        assert torch.equal(cf["layer0"]["v"], cx["layer0"]["v"])
+
+    def test_serve_loop_matches_offline_decode(self, cuda):
+        """The batched per-slot decode against one-request prefill +
+        decode_step on the card: 5 requests over 2 slots, one reaching
+        max_seq - 1."""
+        from repro_torch.configs import get_config
+        from repro_torch.models import (ModelRuntime, ShardingPlan,
+                                        decode_step, prefill)
+        from repro_torch.runtime import Request, ServeLoop
+        cfg = get_config("tinyllama-1.1b").scaled_down(n_layers=2)
+        params = _lm_params(cfg)
+        rt = ModelRuntime(attn_impl="flash")
+        rng = np.random.default_rng(7)
+        lens = (5, 9, 31, 3, 17)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=n)
+                        .astype(np.int32), max_new_tokens=6)
+                for i, n in enumerate(lens)]
+        loop = ServeLoop(cfg, params, max_batch=2, max_seq=32, rt=rt)
+        loop.run(reqs)
+        assert all(r.done for r in reqs)
+        # the 31-token prompt stops at max_seq - 1 after one tick; its
+        # slot then idles at position max_seq
+        assert len(reqs[2].tokens) == 2
+        for r in reqs:
+            tok = torch.from_numpy(r.prompt.astype(np.int64))[None].to(cuda)
+            lg, cache = prefill(cfg, params, {"tokens": tok},
+                                ShardingPlan(), rt, max_seq=32)
+            want, pos = [int(lg[0, -1].argmax())], len(r.prompt)
+            while len(want) < len(r.tokens):
+                lg, cache = decode_step(cfg, params, cache,
+                                        torch.tensor([[want[-1]]],
+                                                     device=cuda),
+                                        pos, ShardingPlan(), rt)
+                want.append(int(lg[0, 0].argmax()))
+                pos += 1
+            assert r.tokens == want, r.rid
+
+    def test_scheduler_feeds_the_loop_from_captured_graphs(self, cuda):
+        """Images through the loop's ContinuousScheduler to a PlanServer
+        serving captured graphs (captured on its workers while the main
+        thread prefills): the same tokens as behind an eager server, and
+        every bucket's executable a graph."""
+        from repro_torch.configs import get_config
+        from repro_torch.core.costs import AnalyticCostModel
+        from repro_torch.models import ModelRuntime
+        from repro_torch.runtime import Request, ServeLoop
+        from repro_torch.serving import BucketPolicy, PlanServer, conv_tower
+        cfg = get_config("tinyllama-1.1b").scaled_down(n_layers=2)
+        params = _lm_params(cfg)
+        rng = np.random.default_rng(8)
+        imgs = [rng.normal(size=(3, hw, hw)).astype(np.float32)
+                for hw in (12, 20, 33, 40, 14, 27)]
+        prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+                   for n in rng.integers(4, 24, size=len(imgs))]
+        runs = {}
+        for jit in (True, False):
+            srv = PlanServer(lambda s: conv_tower(s, depth=2, width=8),
+                             AnalyticCostModel(), jit=jit,
+                             policy=BucketPolicy(min_hw=8, max_hw=128))
+            loop = ServeLoop(cfg, params, max_batch=4, max_seq=64,
+                             rt=ModelRuntime(attn_impl="flash"),
+                             plan_server=srv)
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=5, pixels=x)
+                    for i, (p, x) in enumerate(zip(prompts, imgs))]
+            try:
+                loop.run(reqs)
+                if jit:
+                    for x in imgs:
+                        assert srv.compiled_for(x.shape).graph is not None
+            finally:
+                loop.close()
+                srv.close()
+            runs[jit] = [(list(r.prompt), r.tokens) for r in reqs]
+        assert runs[True] == runs[False]

@@ -25,7 +25,13 @@ VERBATIM = ["core/scenario.py", "core/layouts.py",
             "reliability/errors.py", "reliability/faults.py",
             "reliability/fallback.py", "reliability/__init__.py",
             "autotune/space.py", "autotune/prune.py", "autotune/generate.py",
-            "autotune/catalog.py", "autotune/__init__.py"]
+            "autotune/catalog.py", "autotune/__init__.py",
+            "serving/scheduler.py", "configs/__init__.py", "configs/base.py",
+            "configs/command_r_35b.py", "configs/gemma2_9b.py",
+            "configs/grok_1_314b.py", "configs/jamba_v0_1_52b.py",
+            "configs/kimi_k2_1t_a32b.py", "configs/llava_next_34b.py",
+            "configs/mamba2_2_7b.py", "configs/mistral_nemo_12b.py",
+            "configs/tinyllama_1_1b.py", "configs/whisper_large_v3.py"]
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -92,7 +98,14 @@ def test_fresh_import_loads_no_jax_and_no_reference():
                 "repro_torch.kernels.winograd_gemm.space",
                 "repro_torch.kernels.conv_direct.space",
                 "repro_torch.kernels.flash_attention.space",
-                "repro_torch.kernels.layout_transform.space"}
+                "repro_torch.kernels.layout_transform.space",
+                "repro_torch.configs", "repro_torch.configs.tinyllama_1_1b",
+                "repro_torch.models", "repro_torch.models.sharding",
+                "repro_torch.models.common", "repro_torch.models.blocks",
+                "repro_torch.models.model", "repro_torch.runtime",
+                "repro_torch.runtime.elastic",
+                "repro_torch.runtime.serve_loop",
+                "repro_torch.serving.scheduler", "repro_torch.launch.serve"}
     assert expected <= set(rep["modules"])
 
 
@@ -100,7 +113,8 @@ def test_no_import_statement_names_jax_or_the_reference():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b"
                      r"|from repro\.)", re.M)
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+        ROOT / "examples" / "serve_lm_torch.py"]
     hits = [f"{f}:{m.group(0)}" for f in files
             for m in pat.finditer(f.read_text())]
     assert hits == []
@@ -137,6 +151,30 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
                      device="cpu")
     assert srv.device.type == "cpu"
     srv.close()
+    # the LM serving path (slice F1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, params_from_numpy
+    from repro_torch.runtime import ServeLoop
+    cfg = get_config("tinyllama-1.1b").scaled_down(
+        n_layers=2, d_model=64, d_ff=128, vocab=256)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, 0)
+    params = init_params(cfg, 0, torch.float32, device="cpu")
+    tree = {"embed": params["embed"].numpy(),
+            "blocks": {"layer0": {"norm1": params["blocks"]["layer0"]
+                                  ["norm1"].numpy()}}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree)
+    assert params_from_numpy(tree, device="cpu")["embed"].device.type == \
+        "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeLoop(cfg, params)
+    assert ServeLoop(cfg, params, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--requests", "1", "--max-new", "1"])
+    assert serve.main(["--requests", "1", "--max-new", "1",
+                       "--device", "cpu"]) == 0
 
 
 def test_mesh_executables_are_not_ported_yet():
@@ -149,3 +187,19 @@ def test_mesh_executables_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="slice G"):
         compile_plan(sel, net.init_params(0), batch=2, mesh=object(),
                      device="cpu")
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "dp=2"], ["--dp-mesh", "2"]])
+def test_serve_meshes_are_not_ported_yet(flag):
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match="slice G"):
+        serve.main(["--device", "cpu", "--vision-every", "2", *flag])
+
+
+def test_elastic_remesh_is_not_ported_yet():
+    from repro_torch.runtime import ElasticController
+    ec = ElasticController(make_mesh=lambda n: None,
+                           make_rules=lambda shape: None)
+    with pytest.raises(NotImplementedError, match="slice G"):
+        ec.current()
+    assert ec.desired_workers(queued=10, inflight=0) == 2

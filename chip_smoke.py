@@ -93,6 +93,32 @@ checkout of the repository.  Phases, each of which raises on failure:
    cache line.  Printed: prefill host ms per prompt, admissions and
    decode ticks on the host clock, tokens/s, K6 at T = 1024 beside SDPA
    and its bound, a decode tick's device busy time under the profiler.
+12. families: Jamba-v0.1 at full width, one period of 8 layers (13.27 B
+   parameters: attention at index 4, seven Mamba layers, four MoE FFNs
+   of 16 experts top-2), served as phase 11 serves TinyLlama (path
+   ``jamba_serve``: K6 exactly once per prefill, none in decode; K6 at
+   the run's prefill shapes as below; flash prefill logits
+   within ``NET_REL`` of the plain path's largest; every served token
+   the offline decode's at a clear margin; the pairs the MoE layers drop
+   by capacity at the longest prompt); Mamba2-2.7B at full width and
+   depth served the same way with 4 prompts (``mamba2_serve``, no
+   kernel on its path); Whisper-large-v3 at full width and depth,
+   ``prefill`` on 1500 frames and 64 tokens and 8 decode steps against
+   ``encode``'s output (``whisper``: K6 32 times non-causal in
+   the encoder and 32 causal in the decoder; ``whisper_encode``: the
+   cross-attention source, 32); LLaVA-NeXT-34B at full width, 4 layers,
+   on 2880 patches and 128 tokens (``llava``: 4); each flash run's
+   logits within ``NET_REL`` of the plain run's largest or within the
+   plain run's own move under a one-rounding nudge of its input
+   (Whisper's 64 random layers amplify f32 rounding past ``NET_REL``),
+   and Whisper's encoder output and decoder logits each within
+   ``NET_REL``; K6 at each recorded call's shapes within ``TOL_ATTN``
+   of its plain version on unit normals, and on the path's operands no
+   farther from a float64 evaluation than ``TOL_ATTN`` or twice the
+   plain version, timed at each model's longest prefill shape beside
+   SDPA and its bound; each model's size, prefill host ms and a decode
+   step's host and device time beside its floor, each model freed
+   before the next.
 
 Plans are compared at every conv's output, the pre-softmax logits and
 the probabilities, each within 1e-3 of the reference's largest
@@ -113,7 +139,8 @@ its tuned plans are paths as phases 3-7's.  Phase 10's loop is one path,
 a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.  Phase 11's served runs
 are paths too (``lm_serve``, ``lm_serve_warm``), as is its CLI run
-(``lm_cli``); K6's ``launches`` are ``lm_serve``'s.
+(``lm_cli``); K6's ``launches`` are ``lm_serve``'s, and every path's
+count, phase 12's included, is listed beside them.
 """
 from __future__ import annotations
 
@@ -261,9 +288,9 @@ class KernelReport:
         self.err = self.rel_err = 0.0
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.ops_s = self.bytes_s = self.bound_s = 0.0
-        self.batch8 = None  # K3: a second report, its times at batch 8
-        #: K6: a second report, its times at TinyLlama's prefill shape
-        self.lm_prefill = None
+        #: further reports of this kernel at other shapes, by name (K3's
+        #: times at batch 8, K6's at the LM paths' prefill shapes)
+        self.subs = {}
 
     def same_bits(self, fn, what):
         """Two calls give the same bits: the split-K sum has a fixed
@@ -314,9 +341,8 @@ class KernelReport:
         plan at batch 1 that puts it there; K6: phase 11's served run,
         ``lm_serve``); for the kernels that no path runs (K5), the sum
         over the calibration path's kernel items, one call each.  Every
-        path's own count is listed beside, K3's times at batch 8
-        (``batch8``) and K6's at TinyLlama's prefill shape
-        (``lm_prefill``)."""
+        path's own count is listed beside, and each report in ``subs``
+        (K3's times at batch 8, K6's at the LM paths' prefill shapes)."""
         by_path = {p: c[self.name] for p, c in paths.items()
                    if c.get(self.name)}
         first = next((p for p in by_path
@@ -336,12 +362,10 @@ class KernelReport:
                  "bound_by": ("operations" if self.ops_s >= self.bytes_s
                               else "bytes"),
                  "library_ms": self.library_ms}
-        for key in ("batch8", "lm_prefill"):
-            sub = getattr(self, key)
-            if sub is not None:
-                entry[key] = {"ms": sub.ms, "plain_ms": sub.plain_ms,
-                              "library_ms": sub.library_ms,
-                              "bound_ms": sub.bound_s * 1e3}
+        for key, sub in self.subs.items():
+            entry[key] = {"ms": sub.ms, "plain_ms": sub.plain_ms,
+                          "library_ms": sub.library_ms,
+                          "bound_ms": sub.bound_s * 1e3}
         return entry
 
 
@@ -513,7 +537,7 @@ def kernel_phase(torch, F):
     print(f"  {k3.name:14s} batch 8 total: kernel {k3b8.ms:.5f} ms  plain "
           f"{k3b8.plain_ms:.5f} ms  library {k3b8.library_ms:.5f} ms  "
           f"bound {k3b8.bound_s * 1e3:.5f} ms")
-    k3.batch8 = k3b8
+    k3.subs["batch8"] = k3b8
 
     # K4: conv1 and conv2, CHW and HWC in and out
     for nid in ("conv1", "conv2"):
@@ -1739,82 +1763,67 @@ LM_CLI_ARGS = ["--requests", "6", "--max-new", "4", "--vision-every", "2",
                "--attn-impl", "flash"]
 
 
-def lm_phase(torch, F, dev, paths, attn_rpt):
-    """Phase 11: the LM serving path on the card.  ``attn_rpt``: K6's
-    report, which gains the served run's launches and the TinyLlama
-    prefill shape's times (``lm_prefill``)."""
-    import contextlib
-    import io
+def lm_requests(cfg, prompt_lens, max_new):
+    """Requests of these prompt lengths from seed 11, every second one
+    (the odd ones) with an image of 12-40 px for the conv tower."""
+    from repro_torch.runtime import Request
+    rng = np.random.default_rng(11)
+    out = []
+    for i, n in enumerate(prompt_lens):
+        pixels = None
+        if i % 2 == 1:
+            hw = int(rng.integers(12, 41))
+            pixels = rng.normal(size=(3, hw, hw)).astype(np.float32)
+        out.append(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab, size=n).astype(np.int32),
+            max_new_tokens=max_new, pixels=pixels))
+    return out
 
-    from repro_torch.configs import get_config
+
+def serve_runs(torch, dev, cfg, params, prompt_lens, names, paths, k6,
+               k6_per_prefill, what):
+    """Serve ``lm_requests`` through a ``ServeLoop`` (``attn_impl=
+    "flash"``, ``LM_MAX_BATCH`` slots, ``max_seq`` ``LM_MAX_SEQ``) with
+    the conv tower's ``PlanServer`` behind its ``ContinuousScheduler``,
+    once per name in ``names``, each run one path: counts at 0 before,
+    read after.  Each run must serve every token and launch K6 (``k6``)
+    exactly ``k6_per_prefill`` times per request, none of them in a
+    decode tick.  Returns (the loop, {name: requests})."""
     from repro_torch.core.costs import AnalyticCostModel
-    from repro_torch.kernels.common import (launch_counts,
-                                            reset_launch_counts, true_f32)
-    from repro_torch.kernels.flash_attention import (attention_plan,
-                                                     flash_attention,
-                                                     flash_attention_cuda,
-                                                     flash_attention_ref)
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.models import (ModelRuntime, ShardingPlan, decode_step,
-                                    init_params, param_count, prefill)
-    from repro_torch.models.common import rms_norm, rope
-    from repro_torch.runtime import Request, ServeLoop
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.models import ModelRuntime
+    from repro_torch.runtime import ServeLoop
     from repro_torch.serving import BucketPolicy, PlanServer, conv_tower
-
-    cfg = get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    params = init_params(cfg, 0, torch.float32, dev)
-    sync(torch, dev)
-    n_par = param_count(cfg)
-    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
-          f"vocab {cfg.vocab}: {n_par} parameters in f32 "
-          f"({n_par * 4 / 1e9:.2f} GB), made in "
-          f"{time.perf_counter() - t0:.2f} s")
-
-    def requests():
-        rng = np.random.default_rng(11)
-        out = []
-        for i, n in enumerate(LM_PROMPTS):
-            pixels = None
-            if i % 2 == 1:
-                hw = int(rng.integers(12, 41))
-                pixels = rng.normal(size=(3, hw, hw)).astype(np.float32)
-            out.append(Request(rid=i, prompt=rng.integers(
-                0, cfg.vocab, size=n).astype(np.int32),
-                max_new_tokens=LM_MAX_NEW, pixels=pixels))
-        return out
 
     server = PlanServer(lambda s: conv_tower(s, depth=2, width=8),
                         AnalyticCostModel(),
                         policy=BucketPolicy(min_hw=8, max_hw=128),
                         device=dev)
-    plain = ShardingPlan()
-    flash_rt, xla_rt = ModelRuntime(attn_impl="flash"), ModelRuntime()
     loop = ServeLoop(cfg, params, max_batch=LM_MAX_BATCH,
-                     max_seq=LM_MAX_SEQ, rt=flash_rt, plan_server=server,
-                     device=dev)
+                     max_seq=LM_MAX_SEQ, rt=ModelRuntime(attn_impl="flash"),
+                     plan_server=server, device=dev)
     # host clock per admission (vision, prefill) and per decode tick: each
     # ends on a copy to the host, so each call's time includes its device
-    # work
-    spent = {"admit": [], "tick": []}
+    # work; a tick's K6 launches are counted apart
+    spent = {"admit": [], "tick": [], "tick_k6": []}
 
     def timed(name, fn):
         def call():
+            n0 = launch_counts().get(k6, 0)
             t0 = time.perf_counter()
             fn()
             spent[name].append(time.perf_counter() - t0)
+            if name == "tick":
+                spent["tick_k6"].append(launch_counts().get(k6, 0) - n0)
         return call
 
     loop._admit = timed("admit", loop._admit)
     loop._tick = timed("tick", loop._tick)
-    want_k6 = cfg.n_layers * len(LM_PROMPTS)
+    want_k6 = k6_per_prefill * len(prompt_lens)
     runs = {}
     try:
-        # the served runs, each one path: cold (first calls, the vision
-        # buckets' solves and captures), then the same requests warm
-        for name in ("lm_serve", "lm_serve_warm"):
-            reqs = requests()
+        for name in names:
+            reqs = lm_requests(cfg, prompt_lens, LM_MAX_NEW)
             for v in spent.values():
                 v.clear()
             sync(torch, dev)
@@ -1827,12 +1836,13 @@ def lm_phase(torch, F, dev, paths, attn_rpt):
             stats = loop.scheduler.stats()
             n_tok = sum(len(r.tokens) for r in reqs)
             check(all(r.done and len(r.tokens) == LM_MAX_NEW for r in reqs),
-                  f"lm: not every request served {LM_MAX_NEW} tokens")
+                  f"{what}: not every request served {LM_MAX_NEW} tokens")
             print(f"  path {name}: launches {counts}")
-            check(counts.get(attn_rpt.name) == want_k6,
-                  f"lm: {attn_rpt.name} launched {counts.get(attn_rpt.name)} "
-                  f"times on {name}, expected {cfg.n_layers} per prefill = "
-                  f"{want_k6} (decode launches none)")
+            check(counts.get(k6, 0) == want_k6 and sum(spent["tick_k6"]) == 0,
+                  f"{what}: {k6} launched {counts.get(k6, 0)} times on {name}"
+                  f" ({sum(spent['tick_k6'])} in decode ticks), expected "
+                  f"{k6_per_prefill} per prefill = {want_k6} (decode "
+                  f"launches none)")
             ticks = np.asarray(spent["tick"]) * 1e3
             print(f"  {name}: {len(reqs)} requests, {n_tok} tokens in "
                   f"{wall:.4f} s (host clock): {n_tok / wall:.2f} tokens/s; "
@@ -1843,11 +1853,156 @@ def lm_phase(torch, F, dev, paths, attn_rpt):
                   f"{stats['buckets']} buckets, {stats['solves']} solves, "
                   f"{stats['compiles']} compiles, {stats['sched_batches']} "
                   f"scheduler batches; vision kernel launches "
-                  f"{({k: v for k, v in counts.items() if k != attn_rpt.name}) or 'none'}")
+                  f"{({k: v for k, v in counts.items() if k != k6}) or 'none'}")
             runs[name] = reqs
     finally:
         loop.close()
         server.close()
+    return loop, runs
+
+
+def check_served(torch, dev, cfg, params, reqs, prompt_lens, max_new, what,
+                 on_flash=None):
+    """Each served request against the plain path and an offline decode:
+    its flash prefill logits within ``NET_REL`` of the plain path's
+    largest, and every served token the argmax of a teacher-forced
+    one-request ``prefill`` + ``decode_step`` on the served history
+    wherever the top-2 margin exceeds ``NET_REL`` of the largest logit.
+    ``on_flash(t)``: a context manager around the flash prefill of a
+    T-token prompt.  Returns the flash prefill's host ms per T."""
+    import contextlib
+
+    from repro_torch.kernels.common import true_f32
+    from repro_torch.models import (ModelRuntime, ShardingPlan, decode_step,
+                                    prefill)
+    plain = ShardingPlan()
+    flash_rt, xla_rt = ModelRuntime(attn_impl="flash"), ModelRuntime()
+    prefill_ms = {}
+    for r in sorted(reqs, key=lambda r: len(r.prompt)):
+        t = len(r.prompt)
+        tok = torch.from_numpy(r.prompt.astype(np.int64))[None].to(dev)
+        with true_f32():
+            lx, cache = prefill(cfg, params, {"tokens": tok}, plain, xla_rt,
+                                max_seq=t + max_new)
+            del cache
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            with (on_flash(t) if on_flash else contextlib.nullcontext()):
+                lf, cache = prefill(cfg, params, {"tokens": tok}, plain,
+                                    flash_rt, max_seq=t + max_new)
+                sync(torch, dev)
+            prefill_ms[t] = (time.perf_counter() - t0) * 1e3
+            lx, lf = lx[0, -1], lf[0, -1]
+            scale = float(lx.abs().max())
+            err = float((lf - lx).abs().max())
+            check(bool(lf.isfinite().all()) and err <= NET_REL * scale,
+                  f"{what} request {r.rid} (T = {t}): flash prefill logits "
+                  f"differ from the plain path's by {err:.3e} > "
+                  f"{NET_REL} x {scale:.3e}")
+            # teacher-forced offline greedy decode on the served tokens:
+            # each step's argmax must be the served token wherever the
+            # top-2 margin is clear of the tolerance
+            logits, clear, pos = lf, 0, t
+            for j, served in enumerate(r.tokens):
+                top2 = torch.topk(logits, 2).values
+                margin = float(top2[0] - top2[1])
+                mine = int(torch.argmax(logits))
+                if margin > NET_REL * float(logits.abs().max()):
+                    clear += 1
+                    check(mine == served,
+                          f"{what} request {r.rid}: step {j} served "
+                          f"{served}, offline decode {mine} at a clear "
+                          f"margin {margin:.3e}")
+                elif mine != served:
+                    print(f"  request {r.rid} step {j}: served {served}, "
+                          f"offline {mine}, margin {margin:.3e} within "
+                          f"the tolerance")
+                if j + 1 < len(r.tokens):
+                    lg, cache = decode_step(
+                        cfg, params, cache,
+                        torch.tensor([[served]], device=dev), pos, plain,
+                        flash_rt)
+                    logits, pos = lg[0, 0], pos + 1
+            del cache
+        print(f"  request {r.rid}: T = {t}{' (4 image tokens)' if prompt_lens[r.rid] != t else ''}, flash "
+              f"prefill {prefill_ms[t]:.4f} ms (host clock), logits within "
+              f"{err / max(scale, 1e-30):.3e} of the plain path's largest, "
+              f"{clear}/{len(r.tokens)} steps at a clear margin, all equal "
+              f"to the offline decode")
+    return prefill_ms
+
+
+def tick_profile(torch, cfg, params, cache, toks, pos, floor_bytes, floor_is,
+                 cross_kv=None):
+    """One decode step of ``toks`` (B, 1) at positions ``pos`` on
+    ``cache``, as the serving loop runs it (``drop_free``), under
+    ``torch.profiler``: host wall, device busy, idle
+    share, device events and the top kernels, beside the device floor
+    ``floor_bytes`` / ``HBM_BW``.  Returns (wall ms, busy ms or None)."""
+    from repro_torch.kernels.common import true_f32
+    from repro_torch.models import ModelRuntime, ShardingPlan, decode_step
+    with true_f32():
+        tick_ms, busy, top, events = device_profile(
+            torch, lambda: decode_step(cfg, params, cache, toks, pos,
+                                       ShardingPlan(),
+                                       ModelRuntime(attn_impl="flash"),
+                                       cross_kv=cross_kv, drop_free=True),
+            calls=5)
+    floor = floor_bytes / HBM_BW * 1e3
+    share = "not measured" if busy is None else \
+        f"{max(0.0, 1 - busy / tick_ms):.4f}"
+    print(f"  decode tick ({toks.shape[0]} slots) under torch.profiler: "
+          f"wall {tick_ms:.4f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} ms'}, idle "
+          f"share {share}, {events:.0f} device events (floor for "
+          f"{floor_is}: {floor:.4f} ms)")
+    for tm, key in top:
+        print(f"    {tm:9.4f} ms  {key[:90]}")
+    return tick_ms, busy
+
+
+def slot_tick(torch, dev, reqs):
+    """The tokens and positions of a decode tick after a served run:
+    each slot at a request's last token."""
+    toks = torch.tensor([[r.tokens[-1]] for r in reqs[:LM_MAX_BATCH]],
+                        device=dev)
+    pos = torch.tensor([len(r.prompt) + len(r.tokens) - 1
+                        for r in reqs[-LM_MAX_BATCH:]], device=dev)
+    return toks, pos
+
+
+def lm_phase(torch, F, dev, paths, attn_rpt):
+    """Phase 11: the LM serving path on the card.  ``attn_rpt``: K6's
+    report, which gains the served run's launches and the TinyLlama
+    prefill shape's times (``lm_prefill``)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import (launch_counts,
+                                            reset_launch_counts, true_f32)
+    from repro_torch.kernels.flash_attention import (attention_plan,
+                                                     flash_attention,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ref)
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import init_params, param_count
+    from repro_torch.models.common import rms_norm, rope
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.float32, dev)
+    sync(torch, dev)
+    n_par = param_count(cfg)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"vocab {cfg.vocab}: {n_par} parameters in f32 "
+          f"({n_par * 4 / 1e9:.2f} GB), made in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    loop, runs = serve_runs(torch, dev, cfg, params, LM_PROMPTS,
+                            ("lm_serve", "lm_serve_warm"), paths,
+                            attn_rpt.name, cfg.n_layers, "lm")
     reqs = runs["lm_serve"]
     same = [a.tokens == b.tokens for a, b in zip(reqs, runs["lm_serve_warm"])]
     print(f"  the warm run served the cold run's tokens for {sum(same)} of "
@@ -1879,57 +2034,8 @@ def lm_phase(torch, F, dev, paths, attn_rpt):
               f"{TOL_ATTN} of the plain version [{attention_plan(q, k, v, seq_major=True).describe()}]")
 
     # ---- the served model against the plain path and an offline decode ----
-    prefill_ms = {}
-    for r in sorted(reqs, key=lambda r: len(r.prompt)):
-        t = len(r.prompt)
-        tok = torch.from_numpy(r.prompt.astype(np.int64))[None].to(dev)
-        with true_f32():
-            lx, cache = prefill(cfg, params, {"tokens": tok}, plain, xla_rt,
-                                max_seq=t + LM_MAX_NEW)
-            del cache
-            sync(torch, dev)
-            t0 = time.perf_counter()
-            lf, cache = prefill(cfg, params, {"tokens": tok}, plain,
-                                flash_rt, max_seq=t + LM_MAX_NEW)
-            sync(torch, dev)
-            prefill_ms[t] = (time.perf_counter() - t0) * 1e3
-            lx, lf = lx[0, -1], lf[0, -1]
-            scale = float(lx.abs().max())
-            err = float((lf - lx).abs().max())
-            check(err <= NET_REL * scale,
-                  f"lm request {r.rid} (T = {t}): flash prefill logits "
-                  f"differ from the plain path's by {err:.3e} > "
-                  f"{NET_REL} x {scale:.3e}")
-            # teacher-forced offline greedy decode on the served tokens:
-            # each step's argmax must be the served token wherever the
-            # top-2 margin is clear of the tolerance
-            logits, clear, pos = lf, 0, t
-            for j, served in enumerate(r.tokens):
-                top2 = torch.topk(logits, 2).values
-                margin = float(top2[0] - top2[1])
-                mine = int(torch.argmax(logits))
-                if margin > NET_REL * float(logits.abs().max()):
-                    clear += 1
-                    check(mine == served,
-                          f"lm request {r.rid}: step {j} served {served}, "
-                          f"offline decode {mine} at a clear margin "
-                          f"{margin:.3e}")
-                elif mine != served:
-                    print(f"  request {r.rid} step {j}: served {served}, "
-                          f"offline {mine}, margin {margin:.3e} within "
-                          f"the tolerance")
-                if j + 1 < len(r.tokens):
-                    lg, cache = decode_step(
-                        cfg, params, cache,
-                        torch.tensor([[served]], device=dev), pos, plain,
-                        flash_rt)
-                    logits, pos = lg[0, 0], pos + 1
-            del cache
-        print(f"  request {r.rid}: T = {t}{' (4 image tokens)' if LM_PROMPTS[r.rid] != t else ''}, flash "
-              f"prefill {prefill_ms[t]:.4f} ms (host clock), logits within "
-              f"{err / max(scale, 1e-30):.3e} of the plain path's largest, "
-              f"{clear}/{len(r.tokens)} steps at a clear margin, all equal "
-              f"to the offline decode")
+    check_served(torch, dev, cfg, params, reqs, LM_PROMPTS, LM_MAX_NEW,
+                 "lm")
 
     # ---- numbers: K6 at T = 1024, the decode tick, the serve CLI ----
     q, k, v = qkv[1024]
@@ -1946,25 +2052,9 @@ def lm_phase(torch, F, dev, paths, attn_rpt):
                 4.0 * t_ * (t_ + 1) / 2 * hd * cfg.n_heads,
                 4.0 * (2 * q.numel() + k.numel() + v.numel()),
                 attention_plan(q, k, v, seq_major=True))
-    attn_rpt.lm_prefill = lm
-    toks = torch.tensor([[r.tokens[-1]] for r in reqs[:LM_MAX_BATCH]],
-                        device=dev)
-    pos = torch.tensor([len(r.prompt) + LM_MAX_NEW - 1
-                        for r in reqs[-LM_MAX_BATCH:]], device=dev)
-    with true_f32():
-        tick_ms, busy, top, events = device_profile(
-            torch, lambda: decode_step(cfg, params, loop.cache, toks, pos,
-                                       plain, flash_rt), calls=5)
-    floor = n_par * 4 / HBM_BW * 1e3
-    share = "not measured" if busy is None else \
-        f"{max(0.0, 1 - busy / tick_ms):.4f}"
-    print(f"  decode tick ({LM_MAX_BATCH} slots, max_seq {LM_MAX_SEQ}) "
-          f"under torch.profiler: wall {tick_ms:.4f} ms, device busy "
-          f"{'not measured' if busy is None else f'{busy:.4f} ms'}, idle "
-          f"share {share}, {events:.0f} device events (floor for reading "
-          f"the f32 weights once: {floor:.4f} ms)")
-    for tm, key in top:
-        print(f"    {tm:9.4f} ms  {key[:90]}")
+    attn_rpt.subs["lm_prefill"] = lm
+    tick_profile(torch, cfg, params, loop.cache, *slot_tick(torch, dev, reqs),
+                 n_par * 4, "reading the f32 weights once")
     del loop
     small = get_config(LM_ARCH).scaled_down()
     buf = io.StringIO()
@@ -1987,6 +2077,405 @@ def lm_phase(torch, F, dev, paths, attn_rpt):
           f"exit {rc}, path lm_cli: launches {counts}")
     print(f"  {next(ln for ln in out.splitlines() if ln.startswith('served'))}")
     print(f"  {line}")
+
+
+#: phase 12: the MoE/SSM/hybrid families and the encoder-decoder and VLM
+#: input paths (f32, random weights from seed 0).  Jamba-v0.1 at full
+#: width, its depth cut to one period of 8 layers (13.27 B parameters,
+#: 49.4 GiB; all 32 layers would be 191.7 GiB), served as phase 11 serves
+#: TinyLlama; Mamba2-2.7B at full width and depth served with 4 prompts;
+#: Whisper-large-v3 at full width and depth (prefill on 1500 frames and 64
+#: tokens, then decode steps against the encoder's output); LLaVA-NeXT-34B
+#: at full width, its depth cut to 4 layers (3.20 B parameters; all 60
+#: would be 128 GiB), prefill on 2880 patches and 128 tokens, then decode
+#: steps
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+MAMBA_ARCH, MAMBA_PROMPTS = "mamba2-2.7b", (7, 128, 1024, 1500)
+WHISPER_ARCH, WHISPER_TOKENS = "whisper-large-v3", 64
+LLAVA_ARCH, LLAVA_LAYERS, LLAVA_TOKENS = "llava-next-34b", 4, 128
+FAMILY_STEPS = 8
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def made(torch, dev, cfg):
+    """The parameters of ``cfg`` in f32 from seed 0 on ``dev``, their
+    size printed."""
+    from repro_torch.models import init_params, param_count
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.float32, dev)
+    sync(torch, dev)
+    n = param_count(cfg)
+    print(f"  {cfg.name}: {cfg.n_layers} layers"
+          f"{f' (+{cfg.enc_layers} encoder)' if cfg.enc_layers else ''}, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim or '-'}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f"{f', {cfg.n_experts} experts top-{cfg.top_k}' if cfg.n_experts else ''}"
+          f"{f', ssm_state {cfg.ssm_state}' if cfg.ssm_state else ''}: {n} "
+          f"parameters in f32 ({n * 4 / 2**30:.2f} GiB), made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+class FlashCalls:
+    """Inside ``with``: the operands of the first flash-attention call of
+    each (shape, causal) kind, as the models pass them (the first
+    attention layer's)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        import repro_torch.kernels.flash_attention as fa
+        self._fa, self._kept = fa, fa.flash_attention
+
+        def spy(q, k, v, **kw):
+            self.calls.setdefault((tuple(q.shape), tuple(k.shape),
+                                   kw.get("causal")), (q, k, v, kw))
+            return self._kept(q, k, v, **kw)
+        fa.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.flash_attention = self._kept
+
+
+class MoeDrops:
+    """Inside ``with``: per MoE layer called, (pairs, pairs dropped by
+    capacity), read from the router's dispatch of the layer's input."""
+
+    def __init__(self):
+        self.layers = []
+
+    def __enter__(self):
+        import repro_torch.models.blocks as blocks
+        from repro_torch.models.moe import _local_dispatch, capacity
+        self._blocks, self._kept = blocks, blocks.moe_ffn
+
+        def spy(cfg, p, x, plan, **kw):
+            n = x.shape[0] * x.shape[1]
+            c = max(capacity(cfg, n), n if kw.get("drop_free") else 0)
+            _, (keep, *_) = _local_dispatch(cfg, p, x.reshape(n, -1), c)
+            self.layers.append((n * cfg.top_k, int((~keep).sum())))
+            return self._kept(cfg, p, x, plan, **kw)
+        blocks.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._blocks.moe_ffn = self._kept
+
+
+def attention64(q, k, v, *, scale, causal, window=0, softcap=0.0):
+    """Sequence-major attention evaluated in float64 (GQA, causal,
+    window, softcap): what an f32 evaluation is held to where the
+    softmax amplifies f32 rounding."""
+    import torch
+    q, k, v = (t.double().transpose(1, 2) for t in (q, k, v))
+    g = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    s = (q * scale) @ k.transpose(-1, -2)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(q.shape[2], device=q.device)[:, None]
+    kp = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones_like(qp >= kp)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window > 0:
+        mask = mask & (qp - kp < window)
+    p = torch.softmax(torch.where(mask, s, -torch.inf), dim=-1)
+    return (p @ v).transpose(1, 2)
+
+
+def hold_k6(torch, F, attn_rpt, calls, what, sub=None):
+    """K6 at each recorded call's shapes and options: on unit-normal
+    operands from a seed against its plain version within ``TOL_ATTN``;
+    on the recorded operands against a float64 evaluation, no farther
+    from it than ``TOL_ATTN`` of its largest magnitude or twice the
+    plain version's distance (random weights make the logits large
+    enough for the softmax to turn f32 rounding into more than 1e-5:
+    both f32 evaluations then lie as far from the exact one).  With
+    ``sub``, the longest call is timed beside its plain version, SDPA
+    and its bound as ``attn_rpt.subs[sub]``."""
+    from repro_torch.kernels.common import true_f32
+    from repro_torch.kernels.flash_attention import (attention_plan,
+                                                     flash_attention,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ref)
+    gen = torch.Generator(device=next(iter(calls.values()))[0].device)
+    gen.manual_seed(6)
+    with true_f32():
+        for (qs, ks, causal), (q, k, v, kw) in calls.items():
+            kw = {n: kw[n] for n in ("scale", "causal", "window", "softcap")}
+            rq, rk, rv = (torch.randn(t.shape, generator=gen,
+                                      device=t.device) for t in (q, k, v))
+            attn_rpt.compare(flash_attention(rq, rk, rv, layout="LHD", **kw),
+                             flash_attention_ref(rq, rk, rv, seq_major=True,
+                                                 **kw), TOL_ATTN,
+                             f"{what} q {qs} causal={causal}, unit normals")
+            got = flash_attention(q, k, v, layout="LHD", **kw)
+            plain = flash_attention_ref(q, k, v, seq_major=True, **kw)
+            exact = attention64(q, k, v, **kw)
+            scale = float(exact.abs().max())
+            e_k, e_p = (float((t.double() - exact).abs().max())
+                        for t in (got, plain))
+            check(bool(got.isfinite().all())
+                  and e_k <= max(TOL_ATTN * scale, 2 * e_p),
+                  f"{attn_rpt.name} {what} q {qs}: {e_k:.3e} from float64, "
+                  f"the plain version {e_p:.3e}, largest {scale:.3e}")
+            print(f"  {attn_rpt.name} {what} q {qs} k/v {ks} "
+                  f"{'causal' if causal else 'non-causal'}: within "
+                  f"{TOL_ATTN} of the plain version on unit normals; on the "
+                  f"path's operands {e_k / scale:.3e} of the largest from "
+                  f"float64 (the plain version {e_p / scale:.3e}, the two "
+                  f"{float((got - plain).abs().max()) / scale:.3e} apart) "
+                  f"[{attention_plan(q, k, v, seq_major=True).describe()}]")
+        if sub is None:
+            return
+        (qs, _, causal), (q, k, v, kw) = max(calls.items(),
+                                            key=lambda c: c[0][0][1])
+        kw = {n: kw[n] for n in ("scale", "causal", "window", "softcap")}
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        t_, hq, d = q.shape[1], q.shape[2], q.shape[3]
+        pairs = t_ * (t_ + 1) / 2 if causal else t_ * k.shape[1]
+        rpt = KernelReport(attn_rpt.name, attn_rpt.source, attn_rpt.replaces)
+        rpt.time(torch, f"{what} {qs} {'causal' if causal else 'full'}",
+                 lambda: flash_attention_cuda(q, k, v, seq_major=True, **kw),
+                 lambda: flash_attention_ref(q, k, v, seq_major=True, **kw),
+                 lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, is_causal=causal, scale=kw["scale"],
+                     enable_gqa=True),
+                 4.0 * pairs * d * hq,
+                 4.0 * (2 * q.numel() + k.numel() + v.numel()),
+                 attention_plan(q, k, v, seq_major=True))
+        attn_rpt.subs[sub] = rpt
+
+
+def served_family(torch, F, dev, paths, attn_rpt, cfg, prompts, name,
+                  sub=None):
+    """12a/12b: ``cfg`` served by ``serve_runs`` as path ``name`` (K6 once
+    per attention layer and prefill), then ``check_served``, K6 at the
+    prefill shapes of ``LM_K6_CHECK``'s prompts, the pairs the MoE
+    layers drop at the longest prompt, and a decode tick."""
+    from repro_torch.models import param_count
+    from repro_torch.models.blocks import layer_kinds, n_super
+    params = made(torch, dev, cfg)
+    n_attn = n_super(cfg) * sum(k["mixer"] == "attn"
+                                for k in layer_kinds(cfg))
+    loop, runs = serve_runs(torch, dev, cfg, params, prompts, (name,), paths,
+                            attn_rpt.name, n_attn, name)
+    reqs = runs[name]
+    check_ts = {len(r.prompt) for r in reqs if prompts[r.rid] in LM_K6_CHECK}
+    longest = max(len(r.prompt) for r in reqs)
+    flash, drops = FlashCalls(), MoeDrops()
+
+    def on_flash(t):
+        import contextlib
+        return flash if t in check_ts else contextlib.nullcontext()
+    prefill_ms = check_served(torch, dev, cfg, params, reqs, prompts,
+                              LM_MAX_NEW, name, on_flash)
+    if cfg.n_experts:
+        # the drops are read in a prefill of their own, out of the timed one
+        from repro_torch.kernels.common import true_f32
+        from repro_torch.models import ModelRuntime, ShardingPlan, prefill
+        r = next(r for r in reqs if len(r.prompt) == longest)
+        tok = torch.from_numpy(r.prompt.astype(np.int64))[None].to(dev)
+        with true_f32(), drops:
+            prefill(cfg, params, {"tokens": tok}, ShardingPlan(),
+                    ModelRuntime(attn_impl="flash"), max_seq=longest)
+        sync(torch, dev)
+    print(f"  {name}: flash prefill host ms per T "
+          f"{ {t: round(v, 4) for t, v in sorted(prefill_ms.items())} }")
+    if n_attn:
+        check(len(flash.calls) == len(check_ts),
+              f"{name}: K6 recorded at {len(flash.calls)} prefill shapes")
+        hold_k6(torch, F, attn_rpt, flash.calls,
+                f"{cfg.name} first attention layer prefill", sub)
+    if drops.layers:
+        print(f"  {name}: pairs dropped by capacity (cf "
+              f"{cfg.capacity_factor}) per MoE layer at T = {longest}: "
+              + ", ".join(f"{d}/{n}" for n, d in drops.layers))
+    tick_profile(torch, cfg, params, loop.cache,
+                 *slot_tick(torch, dev, reqs), param_count(cfg) * 4,
+                 "reading the f32 weights once")
+
+
+def prefill_family(torch, F, dev, paths, attn_rpt, cfg, batch, name,
+                   want_k6, sub):
+    """12c/12d: ``prefill`` on ``batch`` and ``FAMILY_STEPS``
+    ``decode_step``s, plain (``attn_impl="xla"``) and then flash as path
+    ``name`` (``want_k6`` launches, none in decode); K6 at the first
+    attention layers' prefill shapes; a decode step's profile.  An
+    encoder-decoder decodes against ``encode``'s output, computed before
+    the path (path ``name + "_encode"``).
+
+    The flash run against the plain run: each stage that K6 runs in (an
+    encoder's output; the decoder's logits at every position, given the
+    same encoder output) within ``NET_REL`` of the plain stage's largest
+    magnitude; the composed logits of the prefill and every decode step
+    within ``NET_REL``, or no farther from the plain run's than the plain
+    run moves when its input (frames or patches) moves by one f32
+    rounding, 2^-23: a deep model with random weights amplifies f32
+    rounding past ``NET_REL`` whatever computes its attention."""
+    from repro_torch.kernels.common import (launch_counts,
+                                            reset_launch_counts, true_f32)
+    from repro_torch.models import (ModelRuntime, ShardingPlan, decode_step,
+                                    encode, prefill)
+    params = made(torch, dev, cfg)
+    plain = ShardingPlan()
+    flash_rt, xla_rt = ModelRuntime(attn_impl="flash"), ModelRuntime()
+    rng = np.random.default_rng(12)
+    steps = rng.integers(0, cfg.vocab, size=FAMILY_STEPS)
+    calls = FlashCalls()
+
+    # the prompt's length: a VLM's patches ahead of its tokens
+    t = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                    if "patches" in batch else 0)
+
+    def run(rt, cross, batch=batch):
+        with true_f32():
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            lg, cache = prefill(cfg, params, batch, plain, rt,
+                                max_seq=t + FAMILY_STEPS)
+            sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            outs = [lg[0, -1]]
+            for j, tok in enumerate(steps):
+                lg, cache = decode_step(
+                    cfg, params, cache,
+                    torch.tensor([[int(tok)]], device=dev), t + j, plain,
+                    rt, cross_kv=cross)
+                outs.append(lg[0, 0])
+        return outs, cache, ms
+
+    cross_x = cross_f = None
+    if cfg.family == "encdec":
+        with true_f32():
+            cross_x = encode(cfg, params, batch["frames"], plain, xla_rt)
+            sync(torch, dev)
+            reset_launch_counts()
+            cross_f = encode(cfg, params, batch["frames"], plain, flash_rt)
+            sync(torch, dev)
+        paths[name + "_encode"] = counts = launch_counts()
+        check(counts.get(attn_rpt.name, 0) == cfg.enc_layers,
+              f"{name}: encode launched {counts} (expected "
+              f"{cfg.enc_layers} {attn_rpt.name})")
+        print(f"  path {name}_encode (the cross-attention source): "
+              f"launches {counts}")
+    want, _, plain_ms = run(xla_rt, cross_x)
+    # the plain run with its input moved by one f32 rounding
+    key = "frames" if cfg.family == "encdec" else "patches"
+    nudged = {**batch, key: batch[key] * (1 + 2.0 ** -23)}
+    with true_f32():
+        cross_n = None if cross_x is None else encode(
+            cfg, params, nudged["frames"], plain, xla_rt)
+    moved, _, _ = run(xla_rt, cross_n, nudged)
+    sync(torch, dev)
+    reset_launch_counts()
+    with calls:
+        got, cache, flash_ms = run(flash_rt, cross_f)
+    sync(torch, dev)
+    paths[name] = counts = launch_counts()
+    check(counts.get(attn_rpt.name, 0) == want_k6,
+          f"{name}: {attn_rpt.name} launched {counts.get(attn_rpt.name, 0)}"
+          f" times, expected {want_k6} (decode launches none)")
+    print(f"  path {name} (prefill T = {t} + {FAMILY_STEPS} decode steps): "
+          f"launches {counts}")
+    worst = nudge = 0.0
+    for j, (a, b, c) in enumerate(zip(got, want, moved)):
+        scale = float(b.abs().max())
+        err, sens = (float((x - b).abs().max()) for x in (a, c))
+        check(bool(a.isfinite().all()) and err <= max(NET_REL * scale, sens),
+              f"{name} step {j}: flash logits differ from the plain "
+              f"path's by {err:.3e} > {NET_REL} x {scale:.3e}, and the "
+              f"plain path moves by {sens:.3e} under a one-rounding nudge")
+        worst, nudge = max(worst, err / scale), max(nudge, sens / scale)
+    print(f"  {name}: prefill T = {t} host {flash_ms:.4f} ms flash, "
+          f"{plain_ms:.4f} ms plain; the prefill and {FAMILY_STEPS} decode "
+          f"steps' flash logits within {worst:.3e} of the plain path's "
+          f"largest (the plain path under a one-rounding nudge of its "
+          f"{key}: {nudge:.3e})")
+    if cross_x is not None:
+        from repro_torch.models import model as lm
+
+        def decoder(rt):
+            h = lm._embed(cfg, params, batch["tokens"], plain)
+            h, _ = lm._run_blocks(
+                cfg, params["blocks"], h, plan=plain, rt=rt,
+                positions=torch.arange(h.shape[1], device=dev)[None],
+                cross_kv=cross_x)
+            return lm._head(cfg, params, lm.rms_norm(
+                h, params["final_norm"], cfg.norm_eps), plain)
+        with true_f32():
+            stages = {"encoder output": (cross_f, cross_x),
+                      "decoder logits on the plain encoder's output":
+                      (decoder(flash_rt), decoder(xla_rt))}
+        for what, (a, b) in stages.items():
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            check(bool(a.isfinite().all()) and err <= NET_REL * scale,
+                  f"{name} {what}: flash differs from plain by {err:.3e} > "
+                  f"{NET_REL} x {scale:.3e}")
+            print(f"  {name} {what}: flash within {err / scale:.3e} of the "
+                  f"plain path's largest")
+    hold_k6(torch, F, attn_rpt, calls.calls, f"{cfg.name} layer 0 prefill",
+            sub)
+    tail = {k: v for k, v in params.items()
+            if k not in ("enc_blocks", "enc_pos", "enc_norm", "embed",
+                         "patch_proj")}
+    floor = tree_bytes(tail) + (0 if cross_f is None else
+                                tree_bytes({"x": cross_f}))
+    tok = torch.tensor([[int(steps[-1])]], device=dev)
+    tick_profile(torch, cfg, params, cache, tok, t + FAMILY_STEPS - 1, floor,
+                 "reading the decoder's f32 weights"
+                 + (" and the encoder's output" if cross_f is not None else "")
+                 + " once", cross_kv=cross_f)
+
+
+def families_phase(torch, F, dev, paths, attn_rpt):
+    """Phase 12: Jamba-v0.1 (one period, full width) and Mamba2-2.7B served,
+    Whisper-large-v3 and LLaVA-NeXT-34B (4 layers) through prefill and
+    decode, each model freed before the next."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    print("  -- 12a: Jamba-v0.1, one period of 8 layers at full width --")
+    served_family(torch, F, dev, paths, attn_rpt,
+                  replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS),
+                  LM_PROMPTS, "jamba_serve", "jamba_prefill")
+    torch.cuda.empty_cache()
+    print(f"  -- 12b: Mamba2-2.7B at full width and depth "
+          f"({time.perf_counter() - t0:.1f} s) --")
+    served_family(torch, F, dev, paths, attn_rpt, get_config(MAMBA_ARCH),
+                  MAMBA_PROMPTS, "mamba2_serve")
+    torch.cuda.empty_cache()
+    print(f"  -- 12c: Whisper-large-v3 at full width and depth "
+          f"({time.perf_counter() - t0:.1f} s) --")
+    cfg = get_config(WHISPER_ARCH)
+    rng = np.random.default_rng(12)
+    batch = {"frames": torch.from_numpy((rng.normal(size=(
+        1, cfg.enc_seq, cfg.d_model)) * 0.02).astype(np.float32)).to(dev),
+        "tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, size=(1, WHISPER_TOKENS))).to(dev)}
+    prefill_family(torch, F, dev, paths, attn_rpt, cfg, batch, "whisper",
+                   cfg.enc_layers + cfg.n_layers, "whisper_encoder")
+    torch.cuda.empty_cache()
+    print(f"  -- 12d: LLaVA-NeXT-34B, {LLAVA_LAYERS} layers at full width "
+          f"({time.perf_counter() - t0:.1f} s) --")
+    cfg = replace(get_config(LLAVA_ARCH), n_layers=LLAVA_LAYERS)
+    batch = {"patches": torch.from_numpy((rng.normal(size=(
+        1, cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32)).to(dev),
+        "tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, size=(1, LLAVA_TOKENS))).to(dev)}
+    prefill_family(torch, F, dev, paths, attn_rpt, cfg, batch, "llava",
+                   cfg.n_layers, "llava_prefill")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2213,6 +2702,16 @@ def main() -> int:
     lm_phase(torch, F, dev, paths,
              next(r for r in reports if r.name == "flash_attention"))
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    # ---- 12. the MoE, SSM and hybrid families, encoder-decoder and VLM ----
+    print(f"== families: {JAMBA_ARCH} ({JAMBA_LAYERS} layers) and "
+          f"{MAMBA_ARCH} served, {WHISPER_ARCH} and {LLAVA_ARCH} "
+          f"({LLAVA_LAYERS} layers) through prefill and decode, K6 in every "
+          f"prefill's attention ==")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    families_phase(torch, F, dev, paths,
+                   next(r for r in reports if r.name == "flash_attention"))
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
     for r in reports:
         check(not r.on_path or any(c.get(r.name) for c in paths.values()),
               f"kernel {r.name} never launched on a path")

@@ -7,6 +7,11 @@ plus ``--device`` and ``--attn-impl``).
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --requests 6 --max-new 4 --vision-every 2
 
+``--arch`` takes any architecture of ``repro_torch.configs``, served at
+its ``scaled_down()`` size; the loop passes tokens only, as the
+reference's does, so whisper and llava (which need frames or patches)
+raise as they do there.
+
 ``--device`` (default ``cuda``) is the port's device idiom: the model,
 its cache and the vision tower's executables live on the card unless
 told otherwise, and the driver raises without one.  ``--attn-impl``

@@ -1,9 +1,8 @@
 """LM-family model zoo of the port (PyTorch, a loop over stacked
-superblocks): the dense decoders.  The MoE, SSM, hybrid, encoder-decoder
-and VLM paths come with the ROADMAP's slice F2, training (``loss_fn``)
-with slice F3."""
+superblocks): dense, MoE, SSM, hybrid, encoder-decoder and VLM.
+Training (``loss_fn``) comes with the ROADMAP's slice F3."""
 from .model import (
-    ModelRuntime, active_param_count, decode_step, forward_train,
+    ModelRuntime, active_param_count, decode_step, encode, forward_train,
     init_cache, init_params, param_count, param_defs, param_pspecs,
     params_from_numpy, prefill,
 )
@@ -12,7 +11,7 @@ from .sharding import (
 )
 
 __all__ = [
-    "ModelRuntime", "decode_step", "forward_train", "init_cache",
+    "ModelRuntime", "decode_step", "encode", "forward_train", "init_cache",
     "init_params", "param_count", "active_param_count", "param_defs",
     "param_pspecs", "params_from_numpy", "prefill",
     "Rules", "ShardingPlan", "MEGATRON_RULES", "REPLICATED_RULES",

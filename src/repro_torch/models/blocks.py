@@ -1,17 +1,19 @@
 """Per-family superblock definitions.
 
-Port of the reference's ``models/blocks.py`` for the ``dense`` family
-(and the dense decoders of ``encdec`` and ``vlm``): every architecture is
-a *superblock* of ``period`` layers repeated ``n_layers / period`` times
+Port of the reference's ``models/blocks.py``: every architecture is a
+*superblock* of ``period`` layers repeated ``n_layers / period`` times
 over parameters stacked on a leading ``layers`` axis.  The reference
 scans over that axis; the port loops over it (``models.model``).
 
 Layer kinds within a superblock:
   dense:   [attn+ffn]                       (gemma2: [local, global])
+  moe:     [attn+moe_ffn]
+  hybrid:  jamba 8-block period, attention at index 4, MoE every 2nd
+  ssm:     [mamba]
 
-The ``moe``, ``ssm`` and ``hybrid`` families (mixture-of-experts FFNs and
-Mamba mixers) come with the ROADMAP's slice F2; until then
-:func:`layer_kinds` refuses them.
+Decode writes every layer's new state into the cache it is given, in
+place: attention its new key and value (``common.attention``), a Mamba
+mixer its new ``ssm`` and ``conv`` states.
 """
 from __future__ import annotations
 
@@ -20,22 +22,28 @@ from typing import Any, Dict, List
 import torch
 
 from .common import attention, attention_defs, ffn, ffn_defs, rms_norm
+from .mamba import mamba_block, mamba_defs, mamba_dims
+from .moe import moe_defs, moe_ffn
 from .sharding import PDef, ShardingPlan, map_defs
-
-#: families whose blocks the port has
-PORTED_FAMILIES = ("dense", "encdec", "vlm")
-
-
-def require_ported(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (MoE FFNs, Mamba "
-            f"mixers) is not ported yet: ROADMAP slice F2")
 
 
 def layer_kinds(cfg) -> List[Dict[str, Any]]:
     """The layer pattern of one superblock; len == period."""
-    require_ported(cfg)
+    fam = cfg.family
+    if fam == "ssm":
+        return [{"mixer": "mamba", "ffn": "none"}]
+    if fam == "hybrid":
+        out = []
+        for i in range(cfg.attn_every):
+            out.append({
+                "mixer": "attn" if i == cfg.attn_every // 2 else "mamba",
+                "ffn": "moe" if (i % cfg.moe_every == 1) else "dense",
+                "window": 0,
+            })
+        return out
+    if fam == "moe":
+        return [{"mixer": "attn", "ffn": "moe", "window": 0}
+                for _ in range(cfg.moe_every)]
     # dense / encdec / vlm decoders
     period = max(1, cfg.local_global_period)
     out = []
@@ -59,16 +67,23 @@ def block_defs(cfg) -> Dict[str, Dict[str, PDef]]:
     defs: Dict[str, Dict[str, PDef]] = {}
     for i, kind in enumerate(layer_kinds(cfg)):
         b: Dict[str, Any] = {"norm1": PDef((d,), ("d_model",), init="ones")}
-        b["attn"] = attention_defs(cfg)
+        if kind["mixer"] == "attn":
+            b["attn"] = attention_defs(cfg)
+        else:
+            b["mamba"] = mamba_defs(cfg)
         if cfg.family == "encdec":
             b["norm_x"] = PDef((d,), ("d_model",), init="ones")
             b["cross"] = attention_defs(cfg)
-        if not cfg.parallel_block:
+        if kind["ffn"] != "none" and not cfg.parallel_block:
             b["norm2"] = PDef((d,), ("d_model",), init="ones")
-        b["ffn"] = ffn_defs(cfg)
+        if kind["ffn"] == "dense":
+            b["ffn"] = ffn_defs(cfg)
+        elif kind["ffn"] == "moe":
+            b["moe"] = moe_defs(cfg)
         if cfg.post_norms:
             b["post_norm1"] = PDef((d,), ("d_model",), init="ones")
-            b["post_norm2"] = PDef((d,), ("d_model",), init="ones")
+            if kind["ffn"] != "none":
+                b["post_norm2"] = PDef((d,), ("d_model",), init="ones")
         defs[f"layer{i}"] = b
     return defs
 
@@ -83,49 +98,91 @@ def stack_defs(defs, n: int):
 # ----------------------------------------------------------------------
 def empty_cache(cfg, batch: int, max_seq: int, dtype,
                 device=None) -> Dict[str, Any]:
-    """Per-superblock decode cache (unstacked shapes; stacked by model)."""
+    """Per-superblock decode cache (unstacked shapes; stacked by model):
+    k/v for attention layers, the f32 ``ssm`` state and the ``conv``
+    window (in the model dtype) for Mamba layers."""
     cache: Dict[str, Any] = {}
-    hd = cfg.resolved_head_dim
-    for i, _ in enumerate(layer_kinds(cfg)):
-        # sliding-window layers also keep a full-length linear cache
-        # (window masking handles semantics), as in the reference
-        shape = (batch, max_seq, cfg.n_kv_heads, hd)
-        cache[f"layer{i}"] = {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-        }
+    for i, kind in enumerate(layer_kinds(cfg)):
+        if kind["mixer"] == "attn":
+            # sliding-window layers also keep a full-length linear cache
+            # (window masking handles semantics), as in the reference
+            shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+            cache[f"layer{i}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+            }
+        else:
+            d_inner, h, p_, n = mamba_dims(cfg)
+            cache[f"layer{i}"] = {
+                "ssm": torch.zeros((batch, h, n, p_), dtype=torch.float32,
+                                   device=device),
+                "conv": torch.zeros((batch, cfg.ssm_conv - 1,
+                                     d_inner + 2 * n), dtype=dtype,
+                                    device=device),
+            }
     return cache
 
 
 def apply_superblock(cfg, params, h, *, positions, plan: ShardingPlan,
-                     cache=None, cache_index=None, attn_impl: str = "xla"):
-    """Run one superblock.  Returns (h, new_cache).  (The reference's
-    SSM, MoE and cross-attention arguments come with slice F2.)"""
+                     cache=None, cache_index=None, decode: bool = False,
+                     attn_impl: str = "xla", chunk: int = 256,
+                     cross_kv=None, drop_free: bool = False):
+    """Run one superblock.  Returns (h, new_cache).
+
+    With ``decode``, every layer's new state goes into ``cache`` in place.
+    Cross-attention (the encoder-decoder family, given ``cross_kv``)
+    takes the plain path, as in the reference.  ``drop_free`` gives the
+    MoE FFNs a capacity of at least their token count (``moe_ffn``)."""
     new_cache: Dict[str, Any] = {}
     for i, kind in enumerate(layer_kinds(cfg)):
         p = params[f"layer{i}"]
         c = cache.get(f"layer{i}") if cache else None
         resid = h
         x = rms_norm(h, p["norm1"], cfg.norm_eps)
-        kv = (c["k"], c["v"]) if c else None
-        mix_out, nkv = attention(
-            cfg, p["attn"], x, positions=positions, plan=plan,
-            causal=True, window=kind.get("window", 0), kv_cache=kv,
-            cache_index=cache_index, attn_impl=attn_impl)
-        if nkv is not None:
-            new_cache[f"layer{i}"] = {"k": nkv[0], "v": nkv[1]}
+        if kind["mixer"] == "attn":
+            kv = (c["k"], c["v"]) if c else None
+            mix_out, nkv = attention(
+                cfg, p["attn"], x, positions=positions, plan=plan,
+                causal=True, window=kind.get("window", 0), kv_cache=kv,
+                cache_index=cache_index, attn_impl=attn_impl)
+            if nkv is not None:
+                new_cache[f"layer{i}"] = {"k": nkv[0], "v": nkv[1]}
+        else:
+            mix_out, (nssm, nconv) = mamba_block(
+                cfg, p["mamba"], x, plan, chunk=chunk,
+                ssm_state=c["ssm"] if (c and decode) else None,
+                conv_state=c["conv"] if (c and decode) else None,
+                decode=decode)
+            if c is not None:
+                if decode:
+                    c["ssm"].copy_(nssm)
+                    c["conv"].copy_(nconv)
+                new_cache[f"layer{i}"] = {"ssm": nssm, "conv": nconv}
         if cfg.post_norms:
             mix_out = rms_norm(mix_out, p["post_norm1"], cfg.norm_eps)
 
-        if cfg.parallel_block:
+        if cfg.family == "encdec" and cross_kv is not None:
+            h = resid + mix_out
+            resid = h
+            x = rms_norm(h, p["norm_x"], cfg.norm_eps)
+            mix_out, _ = attention(cfg, p["cross"], x, positions=positions,
+                                   plan=plan, causal=False, xk=cross_kv,
+                                   attn_impl="xla")
+
+        if cfg.parallel_block and kind["ffn"] == "dense":
             ff_out = ffn(p["ffn"], x, plan)
             h = resid + mix_out + ff_out
             continue
 
         h = resid + mix_out
+        if kind["ffn"] == "none":
+            continue
         resid = h
         x = rms_norm(h, p["norm2"], cfg.norm_eps)
-        ff_out = ffn(p["ffn"], x, plan)
+        if kind["ffn"] == "dense":
+            ff_out = ffn(p["ffn"], x, plan)
+        else:
+            ff_out = moe_ffn(cfg, p["moe"], x, plan, drop_free=drop_free)
         if cfg.post_norms:
             ff_out = rms_norm(ff_out, p["post_norm2"], cfg.norm_eps)
         h = resid + ff_out

@@ -165,24 +165,27 @@ def attention(cfg, p, x, *, positions, plan: ShardingPlan,
               causal: bool = True, window: int = 0,
               kv_cache: Optional[Tuple] = None,
               cache_index=None,
+              xk: Optional[torch.Tensor] = None,
               attn_impl: str = "xla"):
-    """Full self-attention layer: projections + rope + attention + out
-    proj.  (The reference's cross-attention source ``xk`` comes with the
-    encoder-decoder path, slice F2.)
+    """Full attention layer: projections + rope + attention + out proj.
 
     kv_cache: (k_cache, v_cache) of (B, S, Hkv, D); with ``cache_index``
     given (a (B,) or (1,) integer tensor: each row's position), the new
     k/v are written in place at each row's index (decode) and attention
-    runs against the cache.  Returns (out, new_cache).
+    runs against the cache.  ``xk``: cross-attention source (B, S, D)
+    (the whisper decoder): keys and values come from it, without rope.
+    Returns (out, new_cache).
     """
     hd = cfg.resolved_head_dim
     scale = hd ** -0.5
+    src = x if xk is None else xk
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions if cache_index is None else
-             cache_index[..., None], cfg.rope_theta)
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    if xk is None:  # rope only for self-attention
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions if cache_index is None else
+                 cache_index[..., None], cfg.rope_theta)
     q = plan.constrain(q, "batch", "seq", "heads", "head_dim")
     k = plan.constrain(k, "batch", "seq", "kv_heads", "head_dim")
     v = plan.constrain(v, "batch", "seq", "kv_heads", "head_dim")
@@ -215,7 +218,7 @@ def attention(cfg, p, x, *, positions, plan: ShardingPlan,
                             window=window, softcap=cfg.attn_softcap,
                             layout="LHD")
     elif (attn_impl == "xla_chunked" and cache_index is None and causal
-          and window == 0 and q.shape[1] >= 1024):
+          and window == 0 and xk is None and q.shape[1] >= 1024):
         o = chunked_causal_attention(q, k, v, scale=scale,
                                      softcap=cfg.attn_softcap)
     else:

@@ -20,7 +20,9 @@ honours as an *open-loop* arrival process.
 The reference decodes with ``vmap`` over the slots of a one-slot
 ``decode_step``; the port runs one batched step with a position per
 slot (rope at each slot's position, each slot's new k/v written at its
-own index in place, each slot's keys masked at its own length).  An idle
+own index in place, each slot's keys masked at its own length, the MoE
+layers given a capacity of at least the slot count, since the
+reference's one-slot steps never drop a pair).  An idle
 slot decodes token 0 as in the reference, at its stale position clamped
 into the cache (where the reference's update clamps its index); its
 result is discarded and its cache row is overwritten whole at the slot's
@@ -192,7 +194,7 @@ class ServeLoop:
                 self.cfg, self.params, self.cache,
                 torch.from_numpy(tokens).to(self.device),
                 torch.from_numpy(pos.astype(np.int64)).to(self.device),
-                self.plan, self.rt)
+                self.plan, self.rt, drop_free=True)
         nxt_all = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         for s, req in enumerate(self.slot_req):
             if req is None:

@@ -1019,3 +1019,105 @@ class TestLMServing:
                 srv.close()
             runs[jit] = [(list(r.prompt), r.tokens) for r in reqs]
         assert runs[True] == runs[False]
+
+
+@pytest.mark.gpu
+class TestFamilies:
+    @pytest.mark.parametrize("t,hq,hkv,d,causal", [
+        (1500, 20, 20, 64, False),    # whisper-large-v3's encoder
+        (3008, 56, 8, 128, True),     # llava-next-34b: 2880 patches + 128
+        (1500, 32, 8, 128, True)])    # jamba-v0.1's attention layer
+    def test_flash_attention_at_family_shapes(self, cuda, t, hq, hkv, d,
+                                              causal):
+        """K6 as the families' prefills call it, sequence-major, within
+        1e-5 of the plain version's largest magnitude: non-causal MHA at
+        L = 1500 (not a multiple of any query tile), GQA 7 and GQA 4 at
+        head dim 128."""
+        q, k, v = (torch.from_numpy(a).to(cuda) for a in _data(
+            23, (1, t, hq, d), (1, t, hkv, d), (1, t, hkv, d)))
+        kw = dict(scale=d ** -0.5, causal=causal)
+        common.reset_launch_counts()
+        got = flash_attention(q, k, v, layout="LHD", **kw)
+        assert common.launch_counts() == {"flash_attention": 1}
+        want = flash_attention_ref(q, k, v, seq_major=True, **kw)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+    def test_jamba_serve_loop_matches_offline_decode(self, cuda):
+        """The hybrid family (attention, Mamba and MoE layers) served on
+        the card: 5 requests over 2 slots, every token the argmax of a
+        one-request prefill + decode_step; K6 once per prefill."""
+        from repro_torch.configs import get_config
+        from repro_torch.models import (ModelRuntime, ShardingPlan,
+                                        decode_step, prefill)
+        from repro_torch.runtime import Request, ServeLoop
+        cfg = get_config("jamba-v0.1-52b").scaled_down()
+        params = _lm_params(cfg)
+        rt = ModelRuntime(attn_impl="flash")
+        rng = np.random.default_rng(17)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=n)
+                        .astype(np.int32), max_new_tokens=6)
+                for i, n in enumerate((5, 9, 2, 17, 12))]
+        loop = ServeLoop(cfg, params, max_batch=2, max_seq=32, rt=rt)
+        common.reset_launch_counts()
+        loop.run(reqs)
+        # two attention layers (one per superblock) per prefill
+        assert common.launch_counts() == {"flash_attention": 2 * len(reqs)}
+        for r in reqs:
+            tok = torch.from_numpy(r.prompt.astype(np.int64))[None].to(cuda)
+            lg, cache = prefill(cfg, params, {"tokens": tok},
+                                ShardingPlan(), rt, max_seq=32)
+            want, pos = [int(lg[0, -1].argmax())], len(r.prompt)
+            while len(want) < len(r.tokens):
+                lg, cache = decode_step(cfg, params, cache,
+                                        torch.tensor([[want[-1]]],
+                                                     device=cuda),
+                                        pos, ShardingPlan(), rt)
+                want.append(int(lg[0, 0].argmax()))
+                pos += 1
+            assert r.tokens == want, r.rid
+
+    def test_mamba_decode_carries_its_state(self, cuda):
+        """Prefill and four decode steps of the SSM family on the card
+        against the same on the CPU (the plain path, which the CPU tests
+        hold to the reference): every step's logits and the ``ssm`` and
+        ``conv`` states, each of which must move every step."""
+        from repro_torch.configs import get_config
+        from repro_torch.models import (ShardingPlan, decode_step,
+                                        init_params, prefill)
+        cfg = get_config("mamba2-2.7b").scaled_down()
+        cpu = init_params(cfg, 0, torch.float32, "cpu")
+
+        def to(tree, dev):
+            if isinstance(tree, dict):
+                return {k: to(v, dev) for k, v in tree.items()}
+            return tree.to(dev, copy=True)
+        card = to(cpu, cuda)
+        tok = np.random.default_rng(3).integers(0, cfg.vocab, size=(2, 12))
+        runs = {}
+        for dev, params in (("cpu", cpu), (cuda, card)):
+            t = torch.from_numpy(tok).to(dev)
+            lg, cache = prefill(cfg, params, {"tokens": t}, ShardingPlan(),
+                                max_seq=20)
+            out = [lg.cpu()]
+            states = []
+            for step in range(4):
+                before = to(cache, "cpu")
+                lg, cache = decode_step(cfg, params, cache, t[:, step:step + 1],
+                                        12 + step, ShardingPlan())
+                out.append(lg.cpu())
+                for lk, leaf in cache.items():
+                    for name in ("ssm", "conv"):
+                        assert not torch.equal(leaf[name].cpu(),
+                                               before[lk][name])
+                states.append(to(cache, "cpu"))
+            runs[str(dev)] = (out, states)
+        (a, sa), (b, sb) = runs.values()
+        for x, y in zip(a, b):
+            assert float((x - y).abs().max()) <= 1e-3 * float(x.abs().max())
+        for ca, cb in zip(sa, sb):
+            for lk in ca:
+                for name in ca[lk]:
+                    x, y = ca[lk][name], cb[lk][name]
+                    assert float((x - y).abs().max()) <= \
+                        1e-3 * float(x.abs().max())

@@ -102,6 +102,7 @@ def test_fresh_import_loads_no_jax_and_no_reference():
                 "repro_torch.configs", "repro_torch.configs.tinyllama_1_1b",
                 "repro_torch.models", "repro_torch.models.sharding",
                 "repro_torch.models.common", "repro_torch.models.blocks",
+                "repro_torch.models.moe", "repro_torch.models.mamba",
                 "repro_torch.models.model", "repro_torch.runtime",
                 "repro_torch.runtime.elastic",
                 "repro_torch.runtime.serve_loop",

@@ -206,3 +206,28 @@ def test_params_must_lie_on_the_loops_device():
     assert loop.device.type == "cpu"
     assert loop.cache["layer0"]["k"].shape == (
         CFG.n_layers, 4, 128, CFG.n_kv_heads, CFG.resolved_head_dim)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mamba2-2.7b"])
+def test_ssm_families_serve_the_reference_tokens(arch):
+    """The hybrid (attention, Mamba and MoE layers) and the SSM family
+    through both loops: 4 requests over 2 slots, so a freed slot's SSM
+    state is overwritten by the next admission's prefill; the tokens
+    are the reference's and each request's offline decode's."""
+    cfg = get_config(arch).scaled_down()
+    _, tp = _params(cfg)
+    prompts = _prompts(8, (5, 11, 2, 7), vocab=cfg.vocab)
+    ref, port = _serve("flash", prompts, max_new=5, cfg=cfg)
+    assert all(r.done for r in port)
+    assert [r.tokens for r in port] == [r.tokens for r in ref]
+    plan = T.ShardingPlan()
+    for r in port:
+        logits, cache = T.prefill(cfg, tp, {"tokens": torch.from_numpy(
+            r.prompt[None])}, plan, max_seq=32)
+        want, pos = [int(torch.argmax(logits[0, -1]))], len(r.prompt)
+        while len(want) < len(r.tokens):
+            lg, cache = T.decode_step(cfg, tp, cache,
+                                      torch.tensor([[want[-1]]]), pos, plan)
+            want.append(int(torch.argmax(lg[0, 0])))
+            pos += 1
+        assert r.tokens == want, r.rid

@@ -119,6 +119,30 @@ checkout of the repository.  Phases, each of which raises on failure:
    SDPA and its bound; each model's size, prefill host ms and a decode
    step's host and device time beside its floor, each model freed
    before the next.
+13. train: TinyLlama-1.1B at full width and depth trained by ``python -m
+   repro_torch.launch.train --full-config --steps 20`` (its ``main``: seq
+   256 x batch 8, AdamW, one checkpoint at step 20): exit 0, every loss
+   finite, the last 5 losses below the first 5, no kernel launched (path
+   ``train``); printed: step ms, tokens/s, peak memory, the checkpoint's
+   GiB and write seconds, one step under the profiler beside its floor.
+   Then ``train()`` at seq 2048 x batch 4 under remat "full" and "dots"
+   (their losses equal within 1e-5 relative; step ms and peak memory
+   each); at 2 layers of full width from one step-0 state, the card
+   against the CPU: the loss within 1e-5 relative, each gradient leaf
+   of the card's within max(1e-4, twice the CPU's worst leaf) of a
+   float64 evaluation, per leaf of its largest (the gradient of the next
+   batch, a wrong one, must fail that gate), AdamW's update of the same
+   gradients within
+   1e-6 of each leaf's largest; then 3 steps of ``train()`` on each from
+   one step-0 checkpoint (step 0's loss within 1e-5, the next within
+   1e-3 relative: AdamW's sign-like first step parts the runs), 10 steps
+   straight against 5 +
+   restart + 5 (losses within 1e-4), a fault at step 7 recovered, a
+   persistent fault aborted; the last checkpoint restored onto the card
+   and a 64-token prompt prefilled with K6 (path ``train_serve``: once
+   per layer; logits within 1e-4 of the plain prefill's largest), and
+   ``loss_fn`` with ``attn_impl="flash"`` under grad refused before K6
+   launches.
 
 Plans are compared at every conv's output, the pre-softmax logits and
 the probabilities, each within 1e-3 of the reference's largest
@@ -140,7 +164,7 @@ a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.  Phase 11's served runs
 are paths too (``lm_serve``, ``lm_serve_warm``), as is its CLI run
 (``lm_cli``); K6's ``launches`` are ``lm_serve``'s, and every path's
-count, phase 12's included, is listed beside them.
+count, phase 12's and 13's included, is listed beside them.
 """
 from __future__ import annotations
 
@@ -2478,6 +2502,434 @@ def families_phase(torch, F, dev, paths, attn_rpt):
     torch.cuda.empty_cache()
 
 
+#: phase 13: training.  TinyLlama-1.1B at full width and depth through
+#: the train CLI (``--full-config``: seq 256 x batch 8, the CLI's defaults,
+#: AdamW with ``warmup_cosine(3e-4, 20, 20)``, one checkpoint at the last
+#: step), then ``train()`` at seq 2048 x batch 4 under each remat policy;
+#: at 2 layers of full width (219 M parameters) the card against the CPU
+#: from one step-0 checkpoint, the loop's restart, fault and abort, and
+#: the trained checkpoint served with K6
+TRAIN_ARCH, TRAIN_STEPS = "tinyllama-1.1b", 20
+#: the train CLI's default shape
+TRAIN_SEQ, TRAIN_BATCH = 256, 8
+TRAIN_CLI_ARGS = ["--full-config", "--steps", str(TRAIN_STEPS),
+                  "--ckpt-every", str(TRAIN_STEPS)]
+REMAT_SEQ, REMAT_BATCH, REMAT_STEPS = 2048, 4, 3
+SMALL_LAYERS, SMALL_SEQ, SMALL_BATCH, SMALL_STEPS = 2, 64, 2, 3
+TRAIN_PROMPT = 64
+#: the card against the CPU from one step-0 state: the loss within 1e-5
+#: relative (f32 on both, summed in other orders).  The gradients of
+#: these random-weight models are ill-conditioned (the stacked weights'
+#: fan-in is the layer count, ROADMAP §3): the CPU's own f32 gradient
+#: lies up to ~4e-3 of a leaf's largest from a float64 evaluation, so
+#: each leaf of the card's is held to a float64 evaluation on the CPU,
+#: within 1e-4 of the leaf's largest or twice the worst leaf of the
+#: CPU's f32 gradient (the rule of ``tests/test_torch_train.py``'s
+#: ``GRAD_REL``); the next batch's gradient, a wrong one, must fail that
+#: gate.  AdamW's update of the
+#: same gradients within 1e-6 of each leaf's largest (its only
+#: reduction is the global norm).  Then ``train()`` on each device: step
+#: 0's loss within 1e-5; the runs part after it, since AdamW's first
+#: step is ~lr x sign(g) and a gradient near 0 that rounds to the other
+#: sign moves its element 2 lr apart (3.5e-5 and 8.9e-5 relative after
+#: one and two updates on the H100 against the CPU), so the next losses
+#: are held within 1e-3 relative, a check that both train one model.  A
+#: resumed run: losses within 1e-4, as the reference's
+#: ``test_restart_resumes_and_matches``; served: the LM parity
+#: tolerance, 1e-4 of the largest logit
+TRAIN_LOSS_REL, GRAD_REL, UPDATE_REL, TRAIN_DRIFT_REL = 1e-5, 1e-4, 1e-6, \
+    1e-3
+RESUME_TOL, SERVE_REL = 1e-4, 1e-4
+
+
+def leaf_dists(got, want) -> list:
+    """Per leaf of two trees of one structure (any devices): the largest
+    ``|got - want|`` over the leaf's largest ``|want|``."""
+    from repro_torch.tree import leaves
+    out = []
+    for x, y in zip(leaves(got), leaves(want)):
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        scale = float(y.abs().max()) if y.numel() else 0.0
+        err = float((x - y).abs().max()) if y.numel() else 0.0
+        out.append(err / scale if scale else err)
+    return out
+
+
+def leaf_dist(got, want) -> float:
+    """The worst leaf of :func:`leaf_dists`."""
+    return max(leaf_dists(got, want))
+
+
+def float64_grads(cfg, params, batch):
+    """``loss_and_grads`` on the CPU in float64: the parameters and the
+    batch's floats made float64, and the model's f32 casts
+    (``Tensor.float``) made float64 for the call (RoPE's tables stay
+    f32, inputs alike to every evaluation)."""
+    import torch
+    from repro_torch.models import ModelRuntime, ShardingPlan
+    from repro_torch.runtime.train_loop import loss_and_grads
+    from repro_torch.tree import leaves, unflatten
+
+    def f64(t):
+        t = t.detach().cpu()
+        return t.double() if t.is_floating_point() else t
+    p64 = unflatten(params, [f64(t) for t in leaves(params)])
+    b64 = {k: f64(v) for k, v in batch.items()}
+    real = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **kw: self.double()
+    try:
+        return loss_and_grads(cfg, ShardingPlan(), ModelRuntime(), p64, b64)
+    finally:
+        torch.Tensor.float = real
+
+
+def reset_peak(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gib(torch, dev) -> str:
+    """The most the card held since :func:`reset_peak`, in GiB."""
+    if dev.type != "cuda":
+        return "not measured"
+    return f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+
+
+def dir_gib(path) -> float:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file()) / 2**30
+
+
+def train_floor_s(cfg, n_par, seq, batch, passes):
+    """The least time of one step at 67 TFLOP/s f32: ``passes`` x 2
+    flops per weight of the products (the embedding gather has none) per
+    token (6: forward and backward; 8: with full remat), and the plain
+    attention's scores and P V over the whole T x T, ``passes / 2``
+    times its forward."""
+    tokens = seq * batch
+    dense = passes * (n_par - cfg.vocab * cfg.d_model) * tokens
+    attn = 4.0 * batch * cfg.n_heads * seq * seq * cfg.resolved_head_dim \
+        * cfg.n_layers * passes / 2
+    return (dense + attn) / PEAK_F32
+
+
+def steps_ms(metrics, skip=0):
+    return float(np.median([m["time_s"] for m in metrics[skip:]])) * 1e3
+
+
+def train_cli_run(torch, dev, tmp):
+    """13a: ``python -m repro_torch.launch.train --full-config`` (its
+    ``main``), with a spy on ``train`` for the losses and the final state
+    and a timed ``Checkpointer.save``.  Returns (cfg, state, losses)."""
+    import repro_torch.runtime as runtime
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import train_loop
+
+    seen, saves = {}, []
+    real_train, real_ckpt = runtime.train, train_loop.Checkpointer
+
+    def spy(*a, **kw):
+        seen["metrics"] = kw["metrics_out"]
+        seen["state"] = real_train(*a, **kw)
+        return seen["state"]
+
+    class TimedCheckpointer(real_ckpt):
+        def save(self, step, tree, extra=None):
+            t0 = time.perf_counter()
+            super().save(step, tree, extra)
+            saves.append((step, time.perf_counter() - t0,
+                          dir_gib(self.dir / f"step_{step}")))
+
+    argv = TRAIN_CLI_ARGS + ["--device", dev.type, "--ckpt-dir", str(tmp)]
+    runtime.train, train_loop.Checkpointer = spy, TimedCheckpointer
+    try:
+        reset_peak(torch, dev)
+        t0 = time.perf_counter()
+        rc = train_cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        runtime.train, train_loop.Checkpointer = real_train, real_ckpt
+    cfg = get_config(TRAIN_ARCH)
+    m = seen["metrics"]
+    losses = [x["loss"] for x in m]
+    check(rc == 0 and len(losses) == TRAIN_STEPS,
+          f"train: the CLI exited {rc} after {len(losses)} steps")
+    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(last < first, f"train: no learning: the first 5 losses average "
+          f"{first:.4f}, the last 5 {last:.4f}")
+    check(len(saves) == 1 and saves[0][0] == TRAIN_STEPS,
+          f"train: checkpoints {saves}, expected one at {TRAIN_STEPS}")
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}: exit "
+          f"{rc} in {wall:.1f} s; peak {peak_gib(torch, dev)}")
+    print(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"  mean of the first 5 {first:.4f} > of the last 5 {last:.4f}")
+    print(f"  checkpoint at step {saves[0][0]}: {saves[0][2]:.2f} GiB "
+          f"written in {saves[0][1]:.2f} s")
+    return cfg, seen["state"], m
+
+
+def training_phase(torch, dev, paths, attn_rpt):
+    """Phase 13: training on the card (13a-e above ``TRAIN_ARCH``)."""
+    import shutil
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.models import (ModelRuntime, ShardingPlan, init_params,
+                                    loss_fn, param_count, prefill)
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime import TrainLoopConfig, train
+    from repro_torch.runtime.train_loop import loss_and_grads, train_step
+    from repro_torch.tree import leaves, unflatten
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_train_"))
+    try:
+        # ---- 13a: the CLI at full width and depth ----
+        print(f"  -- 13a: {TRAIN_ARCH} at full width and depth through the "
+              f"train CLI --")
+        sync(torch, dev)
+        reset_launch_counts()
+        cfg, st, m = train_cli_run(torch, dev, root / "cli")
+        sync(torch, dev)
+        paths["train"] = launch_counts()
+        check(paths["train"] == {}, f"train: kernels launched "
+              f"{paths['train']}; the training path runs none")
+        n_par = param_count(cfg)
+        seq, bsz = TRAIN_SEQ, TRAIN_BATCH
+        step_ms = steps_ms(m, skip=5)
+        floor = train_floor_s(cfg, n_par, seq, bsz, 6)
+        print(f"  {cfg.name}: {n_par} parameters; step (host clock, median "
+              f"of steps 5-{TRAIN_STEPS - 1}) {step_ms:.2f} ms, "
+              f"{seq * bsz / step_ms * 1e3:.1f} tokens/s; floor "
+              f"{floor * 1e3:.2f} ms at 67 TFLOP/s f32; path train: "
+              f"launches {paths['train']}")
+        opt_lr = warmup_cosine(3e-4, 20, TRAIN_STEPS)
+        opt = adamw(opt_lr)
+        batch = make_batch(cfg, ShapeConfig("cli", seq, bsz, "train"),
+                           TRAIN_STEPS, dtype=torch.float32, device=dev)
+        wall, busy, top, events = device_profile(
+            torch, lambda: train_step(cfg, opt, ShardingPlan(),
+                                      ModelRuntime(), st.params,
+                                      st.opt_state, batch), calls=1)
+        share = "not measured" if busy is None else \
+            f"{max(0.0, 1 - busy / wall):.4f}"
+        print(f"  one step under torch.profiler: wall {wall:.2f} ms, device "
+              f"busy {'not measured' if busy is None else f'{busy:.2f} ms'},"
+              f" idle share {share}, {events:.0f} device events")
+        for t, key in top:
+            print(f"    {t:9.3f} ms  {key[:90]}")
+        del st, m, batch
+        shutil.rmtree(root / "cli")
+        torch.cuda.empty_cache()
+
+        # ---- 13b: remat at seq 2048 x batch 4 ----
+        print(f"  -- 13b: train() at seq {REMAT_SEQ} x batch {REMAT_BATCH}, "
+              f"{REMAT_STEPS} steps under each remat policy --")
+        shape = ShapeConfig("remat", REMAT_SEQ, REMAT_BATCH, "train")
+        floor = train_floor_s(cfg, n_par, REMAT_SEQ, REMAT_BATCH, 8)
+        runs = {}
+        for policy in ("full", "dots"):
+            reset_peak(torch, dev)
+            mr = []
+            train(cfg, shape, opt,
+                  rt=ModelRuntime(remat=True, remat_policy=policy),
+                  loop=TrainLoopConfig(total_steps=REMAT_STEPS,
+                                       ckpt_every=REMAT_STEPS,
+                                       ckpt_dir=str(root / policy), keep=1,
+                                       log_every=0),
+                  metrics_out=mr, device=dev)
+            runs[policy] = [x["loss"] for x in mr]
+            print(f"  remat {policy}: losses {runs[policy]}; step (host "
+                  f"clock, median of {REMAT_STEPS}) {steps_ms(mr):.2f} ms, "
+                  f"{REMAT_SEQ * REMAT_BATCH / steps_ms(mr) * 1e3:.1f} "
+                  f"tokens/s; peak {peak_gib(torch, dev)}; floor "
+                  f"{floor * 1e3:.2f} ms (full remat's flops)")
+            shutil.rmtree(root / policy)
+            torch.cuda.empty_cache()
+        for a, b in zip(runs["full"], runs["dots"]):
+            check(abs(a - b) <= TRAIN_LOSS_REL * abs(a), f"train: remat "
+                  f"full {runs['full']} vs dots {runs['dots']}")
+        print(f"  the two policies' losses agree within {TRAIN_LOSS_REL} "
+              f"relative")
+
+        # ---- 13c: 2 layers at full width, the card against the CPU ----
+        small = replace(cfg, n_layers=SMALL_LAYERS)
+        sshape = ShapeConfig("small", SMALL_SEQ, SMALL_BATCH, "train")
+        print(f"  -- 13c: {SMALL_LAYERS} layers at full width "
+              f"({param_count(small)} parameters) from one step-0 state: "
+              f"the gradients and the update on the card against the CPU, "
+              f"then {SMALL_STEPS} steps of train() on each --")
+        p0 = init_params(small, 0, torch.float32, "cpu")
+        s0 = opt.init(p0)
+
+        def to_card(tree):
+            return unflatten(tree, [t.to(dev) for t in leaves(tree)])
+
+        def batch_at(step, d):
+            return make_batch(small, sshape, step, dtype=torch.float32,
+                              device=d)
+
+        def grads_at(params, step, d):
+            return loss_and_grads(small, ShardingPlan(), ModelRuntime(),
+                                  params, batch_at(step, d))
+        lc, gc_ = grads_at(p0, 0, "cpu")
+        pg = to_card(p0)
+        lg, gg = grads_at(pg, 0, dev)
+        l64, g64 = float64_grads(small, p0, batch_at(0, "cpu"))
+        lc, lg, l64 = float(lc), float(lg), float(l64)
+        check(abs(lc - lg) <= TRAIN_LOSS_REL * abs(lc),
+              f"train: step 0's loss on the card {lg} vs the CPU {lc}")
+        e_cpu, e_card = leaf_dists(gc_, g64), leaf_dists(gg, g64)
+        gate = max(GRAD_REL, 2 * max(e_cpu))
+        check(max(e_card) <= gate, f"train: step 0's gradients on the "
+              f"card lie {e_card} of each leaf's largest from float64, "
+              f"beyond {gate:.3e} (the CPU's {e_cpu})")
+        # a wrong gradient (the card's of step 1's batch) fails the gate
+        wrong = leaf_dist(grads_at(pg, 1, dev)[1], g64)
+        check(wrong > gate, f"train: the gradient gate passes a wrong "
+              f"gradient ({wrong:.3e} <= {gate:.3e})")
+        # the update: the CPU's gradients through AdamW on each device
+        new_c = opt.update(gc_, s0, p0)
+        new_g = opt.update(to_card(gc_), to_card(s0), pg)
+        upd = leaf_dist(new_g, new_c)
+        check(upd <= UPDATE_REL, f"train: AdamW's first update on the "
+              f"card lies {upd:.3e} of a leaf's largest from the CPU's > "
+              f"{UPDATE_REL}")
+        print(f"  step 0: loss {lg} on the card, {lc} on the CPU, {l64} in "
+              f"float64 (gate {TRAIN_LOSS_REL} relative); gradients from "
+              f"float64, per leaf of its largest: the card's worst "
+              f"{max(e_card):.3e}, the CPU's worst {max(e_cpu):.3e} (gate "
+              f"{gate:.3e}; step 1's batch, a wrong gradient: "
+              f"{wrong:.3e}); AdamW's update of "
+              f"the same gradients, parameters and state within "
+              f"{upd:.3e} (gate {UPDATE_REL})")
+        print(f"    per leaf, card / CPU from float64: " + ", ".join(
+            f"{a:.2e}/{b:.2e}" for a, b in zip(e_card, e_cpu)))
+        del gc_, gg, g64, pg, new_c, new_g
+        Checkpointer(root / "cpu").save(0, (p0, s0))
+        shutil.copytree(root / "cpu", root / "card")
+        res = {}
+        for where, d in (("card", dev.type), ("cpu", "cpu")):
+            mr = []
+            t0 = time.perf_counter()
+            st_ = train(small, sshape, opt, loop=TrainLoopConfig(
+                total_steps=SMALL_STEPS, ckpt_dir=str(root / where),
+                log_every=0), metrics_out=mr, device=d)
+            res[where] = ([x["loss"] for x in mr], st_.params)
+            print(f"  train() on the {where}: losses {res[where][0]} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+        (lc, pc), (lg, pg) = res["cpu"], res["card"]
+        check(abs(lc[0] - lg[0]) <= TRAIN_LOSS_REL * abs(lc[0]),
+              f"train: step 0 on the card {lg} vs the CPU {lc}")
+        for a, b in zip(lc[1:], lg[1:]):
+            check(abs(a - b) <= TRAIN_DRIFT_REL * abs(a), f"train: card "
+                  f"{lg} vs CPU {lc}")
+        print(f"  steps 1-{SMALL_STEPS - 1}: losses within "
+              f"{max(abs(a - b) / abs(a) for a, b in zip(lc, lg)):.3e} "
+              f"relative (gate {TRAIN_DRIFT_REL}); parameters after step "
+              f"{SMALL_STEPS} within {leaf_dist(pg, pc):.3e} of each leaf's "
+              f"largest")
+        del res, p0, s0, pc, pg
+        for where in ("card", "cpu"):
+            shutil.rmtree(root / where)
+
+        # ---- 13d: restart, fault and abort ----
+        print(f"  -- 13d: restart, fault and abort at {SMALL_LAYERS} "
+              f"layers --")
+
+        def run(name, steps, **kw):
+            mr = []
+            s = train(small, sshape, opt, loop=TrainLoopConfig(
+                total_steps=steps, ckpt_every=5, ckpt_dir=str(root / name),
+                keep=1, log_every=0, max_retries=2), metrics_out=mr,
+                device=dev, **kw)
+            return s, mr
+        _, full = run("straight", 10)
+        run("resumed", 5)
+        s, resumed = run("resumed", 10)
+        check([x["step"] for x in resumed] == list(range(5, 10)),
+              f"train: the restart ran steps {[x['step'] for x in resumed]}")
+        worst = max(abs(a["loss"] - b["loss"])
+                    for a, b in zip(full[5:], resumed))
+        check(worst <= RESUME_TOL, f"train: 10 straight vs 5 + restart + 5: "
+              f"{worst:.3e}")
+        print(f"  10 steps straight vs 5 + restart + 5: losses within "
+              f"{worst:.3e} (gate {RESUME_TOL})")
+        fired = []
+
+        def fault(step):
+            if step == 7 and not fired:
+                fired.append(step)
+                raise RuntimeError("injected node failure @ 7")
+        sf, mf = run("fault", 10, fault_hook=fault)
+        check(fired == [7] and sf.step == 10 and mf[-1]["step"] == 9,
+              f"train: a fault at step 7: fired {fired}, ended at {sf.step}")
+        print(f"  a fault at step 7: restored from step 5, finished at step "
+              f"{sf.step} ({len(mf)} steps run)")
+
+        def always(step):
+            raise RuntimeError("dead node")
+        try:
+            run("abort", 3, fault_hook=always)
+        except RuntimeError as e:
+            check("aborting" in str(e), f"train: the abort said {e}")
+            print(f"  a persistent fault: {e}")
+        else:
+            raise RuntimeError("train: a persistent fault did not abort")
+        del full, resumed, mf, sf
+
+        # ---- 13e: the trained checkpoint on the serving path ----
+        print(f"  -- 13e: the checkpoint of 13d's step 10 served, K6 in "
+              f"prefill --")
+        like = init_params(small, 1, torch.float32, dev)
+        step, (params, _), _ = Checkpointer(root / "resumed").restore(
+            (like, opt.init(like)))
+        del like
+        check(step == 10 and all(t.equal(u) for t, u in zip(
+            leaves(params), leaves(s.params))),
+            "train: the restored parameters are not the trained ones")
+        tok = torch.from_numpy(np.random.default_rng(13).integers(
+            0, small.vocab, size=(1, TRAIN_PROMPT))).to(dev)
+        with torch.no_grad():
+            plain, _ = prefill(small, params, {"tokens": tok},
+                               ShardingPlan(), ModelRuntime())
+            sync(torch, dev)
+            reset_launch_counts()
+            flash, _ = prefill(small, params, {"tokens": tok},
+                               ShardingPlan(), ModelRuntime(attn_impl="flash"))
+            sync(torch, dev)
+            paths["train_serve"] = launch_counts()
+        want = {attn_rpt.name: small.n_layers}
+        check(paths["train_serve"] == want, f"train_serve: launches "
+              f"{paths['train_serve']}, expected {want}")
+        err = float((flash - plain).abs().max())
+        scale = float(plain.abs().max())
+        check(bool(flash.isfinite().all()) and err <= SERVE_REL * scale,
+              f"train_serve: flash vs plain logits {err:.3e} > "
+              f"{SERVE_REL} x {scale:.3e}")
+        print(f"  prefill of {TRAIN_PROMPT} tokens: flash vs plain logits "
+              f"{err:.3e} (gate {SERVE_REL} x {scale:.3e}); path "
+              f"train_serve: launches {paths['train_serve']}")
+        grad = {**params, "embed": params["embed"].detach().requires_grad_()}
+        batch = make_batch(small, sshape, 0, dtype=torch.float32, device=dev)
+        reset_launch_counts()
+        try:
+            loss_fn(small, grad, batch, ShardingPlan(),
+                    ModelRuntime(attn_impl="flash"))
+        except NotImplementedError as e:
+            check(launch_counts() == {}, "train: K6 launched under grad")
+            print(f"  loss_fn with attn_impl='flash' under grad: "
+                  f"NotImplementedError: {e}")
+        else:
+            raise RuntimeError("train: K6 ran under autograd")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2712,6 +3164,15 @@ def main() -> int:
     families_phase(torch, F, dev, paths,
                    next(r for r in reports if r.name == "flash_attention"))
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    # ---- 13. training: TinyLlama-1.1B, the loop, remat, the checkpoint ----
+    print(f"== train: {TRAIN_ARCH} at full width and depth through the "
+          f"train CLI and train(), AdamW, remat, the checkpointer; the "
+          f"trained checkpoint served with K6 ==")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    training_phase(torch, dev, paths,
+                   next(r for r in reports if r.name == "flash_attention"))
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
     for r in reports:
         check(not r.on_path or any(c.get(r.name) for c in paths.values()),
               f"kernel {r.name} never launched on a path")

@@ -18,6 +18,7 @@ as in the paper.  Mesh-sharded executables are the ROADMAP's slice G.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from dataclasses import dataclass
@@ -109,10 +110,21 @@ class CapturedForward:
                                          device=device)
             self.static_in.copy_(x)
             forward(self.static_in)
-        with recording_launches() as rec:
-            with torch.cuda.graph(self.graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                self.static_out = forward(self.static_in)
+        # no automatic garbage collection while capturing: one on this
+        # thread could free another executable's graph (a dropped
+        # executable in a reference cycle), and destroying a graph
+        # mid-capture invalidates the capture.  ``torch.cuda.graph``
+        # collects before it begins.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with recording_launches() as rec:
+                with torch.cuda.graph(self.graph, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    self.static_out = forward(self.static_in)
+        finally:
+            if collecting:
+                gc.enable()
         #: kernel launches the capture recorded, which it did not count:
         #: each replay launches them, and :meth:`run` counts them there
         self.launches: Dict[str, int] = dict(rec)

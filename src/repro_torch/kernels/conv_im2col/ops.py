@@ -12,8 +12,8 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from ..common import count_launch, on_cpu
-from ..matmul.kernel import matmul_cuda
 from ..matmul.ref import matmul_ref
+from .kernel import im2col_gemm_cuda
 
 
 def im2col_gemm(wmat, pmat, *, out_layout: str = "mn", pin=None):
@@ -22,7 +22,7 @@ def im2col_gemm(wmat, pmat, *, out_layout: str = "mn", pin=None):
     planner's launch), the plain version on CPU tensors."""
     if on_cpu(pmat):
         return matmul_ref(wmat, pmat, out_layout=out_layout)
-    out = matmul_cuda(wmat, pmat, out_layout=out_layout, pin=pin)
+    out = im2col_gemm_cuda(wmat, pmat, out_layout=out_layout, pin=pin)
     count_launch("conv_im2col")
     return out
 

@@ -2,6 +2,8 @@
 version for CPU tensors."""
 from __future__ import annotations
 
+import torch
+
 from ..common import count_launch, on_cpu
 from .kernel import flash_attention_cuda
 from .ref import flash_attention_ref
@@ -22,7 +24,16 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = False,
     planner and it masks ragged tiles, so neither changes the result.
     ``pin = (bq, splits)`` launches that query tile and KV split instead
     of the planner's (a tuned variant's); the plain version ignores it.
+
+    No backward: under autograd with an operand that requires grad it
+    raises ``NotImplementedError`` on either device, as the reference's
+    Pallas kernel has no differentiation rule.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention (K6) has no backward, as the reference kernel "
+            "has none: train with attn_impl='xla' or 'xla_chunked', or "
+            "call it under torch.no_grad()")
     assert layout in ("HLD", "LHD")
     if bq < 1 or bk < 1:
         raise ValueError(f"tile sizes {bq}, {bk}")

@@ -1,9 +1,9 @@
 """LM-family model zoo of the port (PyTorch, a loop over stacked
-superblocks): dense, MoE, SSM, hybrid, encoder-decoder and VLM.
-Training (``loss_fn``) comes with the ROADMAP's slice F3."""
+superblocks): dense, MoE, SSM, hybrid, encoder-decoder and VLM, for
+serving and for training (``loss_fn``)."""
 from .model import (
     ModelRuntime, active_param_count, decode_step, encode, forward_train,
-    init_cache, init_params, param_count, param_defs, param_pspecs,
+    init_cache, init_params, loss_fn, param_count, param_defs, param_pspecs,
     params_from_numpy, prefill,
 )
 from .sharding import (
@@ -12,7 +12,7 @@ from .sharding import (
 
 __all__ = [
     "ModelRuntime", "decode_step", "encode", "forward_train", "init_cache",
-    "init_params", "param_count", "active_param_count", "param_defs",
+    "init_params", "loss_fn", "param_count", "active_param_count", "param_defs",
     "param_pspecs", "params_from_numpy", "prefill",
     "Rules", "ShardingPlan", "MEGATRON_RULES", "REPLICATED_RULES",
 ]

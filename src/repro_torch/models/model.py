@@ -1,16 +1,19 @@
 """Full language-model assembly: embeddings -> stacked superblocks ->
-head; forward / prefill / decode entry points.
+head; train / prefill / decode entry points.
 
 Port of the reference's ``models/model.py`` for every family (dense,
 MoE, SSM, hybrid, encoder-decoder, VLM).  The parameters and the decode
 cache keep the reference's nested dicts, keys and stacked shapes (a
 leading ``layers`` axis over the superblocks); the reference's
-``lax.scan`` over that axis is a Python loop here.  Training
-(``loss_fn``, gradients) comes with the ROADMAP's slice F3.
+``lax.scan`` over that axis is a Python loop here.
 
 :func:`init_params` and :func:`params_from_numpy` put the parameters on
 the card unless told otherwise (``device="cpu"``), and raise without
 one.  The other entry points run where the parameters lie.
+
+Training differentiates :func:`loss_fn` with autograd; flash attention
+(K6) has no backward, as the reference's kernel has none, so a model
+trained here takes ``attn_impl="xla"`` or ``"xla_chunked"``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..kernels.common import resolve_device
 from .blocks import (
@@ -31,8 +35,8 @@ from .sharding import (
 
 __all__ = ["ModelRuntime", "param_defs", "init_params", "param_pspecs",
            "param_count", "active_param_count", "params_from_numpy",
-           "forward_train", "prefill", "decode_step", "init_cache",
-           "encode"]
+           "forward_train", "loss_fn", "prefill", "decode_step",
+           "init_cache", "encode"]
 
 
 @dataclass(frozen=True)
@@ -41,13 +45,22 @@ class ModelRuntime:
 
     ``attn_impl`` picks prefill's attention: "xla" (the plain einsum
     path), "xla_chunked" (its causal chunked form at T >= 1024) or
-    "flash" (the flash kernel, K6).  ``chunk`` is the SSD chunk size.
-    The reference's other fields come with the slices that read them:
-    remat and scan unrolling with training (F3), ``moe_impl`` with the
-    expert-parallel route on a mesh (G).  The reference's
-    ``unroll_chunks`` has no counterpart: the port loops over the SSD
-    chunks in Python, so there is nothing to unroll."""
+    "flash" (the flash kernel, K6, which refuses autograd).  ``remat``
+    recomputes each superblock's activations in the backward pass
+    instead of keeping them (``torch.utils.checkpoint``): under
+    ``remat_policy`` "full" every one, under "dots" all but the outputs
+    of the products without batch dimensions (the projections and the
+    head; the reference's ``dots_with_no_batch_dims_saveable``).  The
+    encoder's layers take "full" under either policy, as the
+    reference's do.  Remat changes what autograd keeps, not what is
+    computed.  ``chunk`` is the SSD chunk size.  The reference's
+    ``moe_impl`` comes with the expert-parallel route on a mesh (slice
+    G); its ``unroll`` and ``unroll_chunks`` have no counterpart: the
+    port's loops over the superblocks and the SSD chunks are Python
+    loops, so there is nothing to unroll."""
     attn_impl: str = "xla"        # "xla" | "xla_chunked" | "flash"
+    remat: bool = False           # activation checkpointing per block
+    remat_policy: str = "full"    # "full" | "dots" (save matmul outputs)
     chunk: int = 256              # SSD chunk size
 
 
@@ -141,29 +154,67 @@ def _head(cfg, params, h, plan: ShardingPlan):
     return plan.constrain(logits, "batch", "seq", "vocab")
 
 
-def _layer(tree, i: int):
-    """Superblock ``i`` of a stacked tree (views, no copy)."""
+def _unbind(tree):
+    """The superblocks of a stacked tree, one view each, split in one
+    op: the backward pass of ``unbind`` stacks the layers' gradients
+    once, where indexing layer by layer would add a zero-filled full
+    stack per layer.  The views write through: a decode step's in-place
+    cache writes land in the stacked cache."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _run_blocks(cfg, blocks_params, h, *, positions, plan, rt: ModelRuntime,
                 cache=None, cache_index=None, decode=False, cross_kv=None,
                 drop_free=False):
-    """The superblocks in order over the stacked ``layers`` axis.
-    Returns (h, per-superblock caches or None); with ``decode`` every
-    superblock's new state is also written into ``cache`` in place."""
+    """The superblocks in order over the stacked ``layers`` axis, each
+    under ``rt``'s remat (which acts only where autograd records: the
+    training forward).  Returns (h, per-superblock caches, or None
+    without a cache); with ``decode`` every superblock's new state is
+    also written into ``cache`` in place."""
+    def block(x, p, c):
+        return apply_superblock(
+            cfg, p, x, positions=positions, plan=plan, cache=c,
+            cache_index=cache_index, decode=decode, attn_impl=rt.attn_impl,
+            chunk=rt.chunk, cross_kv=cross_kv, drop_free=drop_free)
+    per_cache = _unbind(cache) if cache is not None else \
+        [None] * n_super(cfg)
     caches = []
-    for i in range(n_super(cfg)):
-        h, ncache = apply_superblock(
-            cfg, _layer(blocks_params, i), h, positions=positions,
-            plan=plan, cache=None if cache is None else _layer(cache, i),
-            cache_index=cache_index, decode=decode,
-            attn_impl=rt.attn_impl, chunk=rt.chunk, cross_kv=cross_kv,
-            drop_free=drop_free)
+    for p, c in zip(_unbind(blocks_params), per_cache):
+        h, ncache = _remat(rt, rt.remat_policy, block, h, p, c)
         caches.append(ncache)
-    return h, (None if cache is None else caches)
+    return h, (caches if cache is not None else None)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Remat policy "dots": keep the outputs of the products that have no
+    batch dimension, recompute everything else (the reference's
+    ``dots_with_no_batch_dims_saveable``).  ``torch.einsum`` lowers a
+    projection such as "btd,dhk->bthk" to ``bmm`` over one batch entry
+    (b and t folded into the rows) and attention's "bqkgd,bskd->bkgqs"
+    to ``bmm`` over B x Hkv entries, so a ``bmm`` of batch 1 counts as
+    a product without batch dimensions (as does a single-sequence,
+    single-KV-head attention, which the reference would recompute)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) \
+            or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(rt: ModelRuntime, policy: str, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    when ``rt.remat`` is set and autograd records (elsewhere remat has
+    nothing to drop)."""
+    if not (rt.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if policy == "dots":
+        return _ckpt.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=lambda:
+            _ckpt.create_selective_checkpoint_contexts(_dots_saveable))
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ----------------------------------------------------------------------
@@ -177,14 +228,16 @@ def encode(cfg, params, frames, plan: ShardingPlan, rt: ModelRuntime):
         frames.dtype)
     h = plan.constrain(h, "batch", "enc_seq", "d_model")
     positions = torch.arange(frames.shape[1], device=h.device)[None]
-    for i in range(n_super(enc_cfg)):
-        p = _layer(params["enc_blocks"], i)["layer0"]
+
+    def layer(h, p):
         x = rms_norm(h, p["norm1"], cfg.norm_eps)
         a, _ = attention(enc_cfg, p["attn"], x, positions=positions,
                          plan=plan, causal=False, attn_impl=rt.attn_impl)
         h = h + a
         x = rms_norm(h, p["norm2"], cfg.norm_eps)
-        h = h + ffn(p["ffn"], x, plan)
+        return h + ffn(p["ffn"], x, plan)
+    for p in _unbind(params["enc_blocks"]):
+        h = _remat(rt, "full", layer, h, p["layer0"])
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -212,7 +265,8 @@ def _prepare_inputs(cfg, params, batch, plan, rt):
 def forward_train(cfg, params, batch, plan: ShardingPlan,
                   rt: ModelRuntime = ModelRuntime()):
     """Full forward -> logits over the label positions (the text's, for
-    a VLM; no gradients: training is slice F3)."""
+    a VLM), differentiable (``attn_impl`` "xla" or "xla_chunked" under
+    autograd)."""
     h, positions, cross_kv, off = _prepare_inputs(cfg, params, batch,
                                                   plan, rt)
     h, _ = _run_blocks(cfg, params["blocks"], h, positions=positions,
@@ -221,6 +275,20 @@ def forward_train(cfg, params, batch, plan: ShardingPlan,
     if off:
         h = h[:, off:, :]   # VLM: logits over text positions only
     return _head(cfg, params, h, plan)
+
+
+def loss_fn(cfg, params, batch, plan: ShardingPlan,
+            rt: ModelRuntime = ModelRuntime()):
+    """Mean next-token cross-entropy over the labels >= 0 (f32): the
+    reference's ``logsumexp - gold``, masked, over ``max(count, 1)``."""
+    logits = forward_train(cfg, params, batch, plan, rt)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    # a masked label (< 0) gathers column 0, which the mask zeroes
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 # ----------------------------------------------------------------------

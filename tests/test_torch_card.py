@@ -559,6 +559,69 @@ class TestCapturedForward:
         with pytest.raises(ValueError, match="captured for input"):
             graph(xs[:2])  # (N, C, H, W) into a batch-1 graph
 
+    def test_no_garbage_collection_during_a_capture(self, cuda):
+        """A collection on the capturing thread could free another
+        executable's graph (a dropped executable in a reference cycle)
+        mid-capture, and destroying a graph then invalidates the capture
+        ("operation not permitted when stream is capturing"): the
+        warm-up runs with the collector on, the capture with it off, and
+        it is on again after, also after a capture that fails."""
+        import gc
+
+        from repro_torch.core.plan import CapturedForward
+        seen = []
+
+        def forward(x):
+            seen.append(gc.isenabled())
+            return {"y": x * 2}
+        x = torch.ones(8, device=cuda)
+        cf = CapturedForward(forward, x, cuda)
+        assert seen == [True, False] and gc.isenabled()
+        assert torch.equal(cf.run(x)["y"], x * 2)
+
+        def syncing(x):
+            out = forward(x)
+            float(out["y"].sum())
+            return out
+        with pytest.raises(RuntimeError):
+            CapturedForward(syncing, x, cuda)
+        assert gc.isenabled()
+
+    def test_a_graph_dropped_during_a_capture_outlives_it(self, cuda):
+        """The fault the collector's pause repairs, made to happen: an
+        executable whose only holder turns into cyclic garbage during
+        another executable's capture.  Gen 0's threshold at 1 makes each
+        allocation collect; a collection there would destroy the old
+        graph mid-capture and invalidate the capture.  The capture
+        succeeds, and the old executable is freed after it."""
+        import gc
+        import weakref
+
+        from repro_torch.core.plan import CapturedForward
+        x = torch.ones(8, device=cuda)
+        keep = [CapturedForward(lambda x: {"y": x + 1}, x, cuda)]
+        old = weakref.ref(keep[0])
+        calls = []
+
+        def forward(x):
+            calls.append(1)
+            if len(calls) == 2:     # the capture (1: the warm-up)
+                box = [keep.pop()]
+                box.append(box)
+                del box
+                junk = [[] for _ in range(100)]
+                del junk
+            return {"y": x * 2}
+        threshold = gc.get_threshold()
+        gc.set_threshold(1)
+        try:
+            cf = CapturedForward(forward, x, cuda)
+        finally:
+            gc.set_threshold(*threshold)
+        gc.collect()
+        assert len(calls) == 2 and old() is None
+        assert torch.equal(cf.run(x)["y"], x * 2)
+
     def test_jit_has_no_effect_on_the_cpu(self, cuda, alexnet_plans):
         from repro_torch.core.plan import compile_plan
         sel, params, xs = alexnet_plans
@@ -1121,3 +1184,145 @@ class TestFamilies:
                     x, y = ca[lk][name], cb[lk][name]
                     assert float((x - y).abs().max()) <= \
                         1e-3 * float(x.abs().max())
+
+
+# ----------------------------------------------------------------------
+# training: the loop, the optimizer and the checkpointer on the card
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+class TestTraining:
+    CFG_KW = dict(n_layers=2, d_model=64, d_ff=128, vocab=256)
+
+    def _cfg(self):
+        from repro_torch.configs import get_config
+        return get_config("tinyllama-1.1b").scaled_down(**self.CFG_KW)
+
+    def test_flash_attention_refuses_autograd_on_the_card(self, cuda):
+        """K6 has no backward: ``loss_fn`` with ``attn_impl="flash"``
+        under grad raises before the kernel launches; under
+        ``no_grad`` it launches once per layer."""
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.data import make_batch
+        from repro_torch.models import ModelRuntime, ShardingPlan, loss_fn
+        cfg = self._cfg()
+        params = _lm_params(cfg)
+        batch = make_batch(cfg, ShapeConfig("t", 32, 2, "train"), 0,
+                           dtype=torch.float32)
+        leaves = {k: v for k, v in params.items()}
+        leaves["embed"] = params["embed"].detach().requires_grad_()
+        common.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="no backward"):
+            loss_fn(cfg, leaves, batch, ShardingPlan(),
+                    ModelRuntime(attn_impl="flash"))
+        assert common.launch_counts() == {}
+        with torch.no_grad():
+            got = loss_fn(cfg, leaves, batch, ShardingPlan(),
+                          ModelRuntime(attn_impl="flash"))
+            want = loss_fn(cfg, leaves, batch, ShardingPlan(),
+                           ModelRuntime())
+        assert common.launch_counts() == {"flash_attention": cfg.n_layers}
+        assert abs(float(got) - float(want)) <= 1e-5 * float(want)
+
+    def test_training_on_the_card_follows_the_cpu(self, cuda, tmp_path):
+        """From one step-0 state: the loss within 1e-5 relative on the
+        card against the CPU; each gradient leaf of the card's within
+        max(1e-4, twice the CPU's worst leaf) of a float64 evaluation on
+        the CPU, per leaf of its largest (the rule of
+        ``test_torch_train.py``: these gradients are ill-conditioned),
+        which the next batch's gradient, a wrong one, fails; AdamW's
+        update of the same gradients within 1e-6.  Then 3 steps of
+        ``train()`` on each from one step-0 checkpoint: step 0's loss
+        within 1e-5, the next within 1e-3 relative (AdamW's sign-like
+        first step parts the runs), the state restored onto the card."""
+        import shutil
+
+        from repro_torch.checkpoint import Checkpointer
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.data import make_batch
+        from repro_torch.models import ModelRuntime, ShardingPlan, init_params
+        from repro_torch.optim import adamw, warmup_cosine
+        from repro_torch.runtime import TrainLoopConfig, train
+        from repro_torch.runtime.train_loop import loss_and_grads
+        from repro_torch.tree import leaves, unflatten
+
+        def dists(got, want):
+            return [float((x.cpu().double() - y).abs().max()
+                          / y.abs().max())
+                    for x, y in zip(leaves(got), leaves(want))]
+
+        def dist(got, want):
+            return max(dists(got, want))
+
+        def to_card(tree):
+            return unflatten(tree, [t.to(cuda) for t in leaves(tree)])
+        cfg = self._cfg()
+        opt = adamw(warmup_cosine(1e-3, 2, 10))
+        params = init_params(cfg, 0, torch.float32, "cpu")
+        state = opt.init(params)
+        shape = ShapeConfig("t", 32, 4, "train")
+
+        def grads(p, step, dev):
+            return loss_and_grads(cfg, ShardingPlan(), ModelRuntime(), p,
+                                  make_batch(cfg, shape, step,
+                                             dtype=torch.float32,
+                                             device=dev))
+        lc, gc_ = grads(params, 0, "cpu")
+        lg, gg = grads(to_card(params), 0, cuda)
+        assert abs(float(lc) - float(lg)) <= 1e-5 * abs(float(lc))
+        # float64 on the CPU: the model's f32 casts made f64 for the call
+        real = torch.Tensor.float
+        torch.Tensor.float = lambda self, *a, **kw: self.double()
+        try:
+            _, g64 = grads(unflatten(params, [t.double() for t in
+                                              leaves(params)]), 0, "cpu")
+        finally:
+            torch.Tensor.float = real
+        g64 = unflatten(g64, [t.double() for t in leaves(g64)])
+        gate = max(1e-4, 2 * dist(gc_, g64))
+        assert dist(gg, g64) <= gate
+        assert dist(grads(to_card(params), 1, cuda)[1], g64) > gate
+        p1, s1 = opt.update(to_card(gc_), to_card(state), to_card(params))
+        assert s1["count"].device.type == "cuda"
+        p1c, s1c = opt.update(gc_, state, params)
+        assert dist((p1, s1["m"], s1["v"]), (p1c, s1c["m"], s1c["v"])) \
+            <= 1e-6
+        assert int(s1["count"]) == int(s1c["count"]) == 1
+        Checkpointer(tmp_path / "cpu").save(0, (params, state))
+        shutil.copytree(tmp_path / "cpu", tmp_path / "cuda")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            m = []
+            st = train(cfg, shape, opt, loop=TrainLoopConfig(
+                total_steps=3, ckpt_dir=str(tmp_path / dev), log_every=0),
+                metrics_out=m, device=dev)
+            runs[dev] = [x["loss"] for x in m]
+        assert st.opt_state["count"].device.type == "cuda"
+        lc, lg = runs["cpu"], runs["cuda"]
+        assert len(lc) == len(lg) == 3
+        assert abs(lc[0] - lg[0]) <= 1e-5 * abs(lc[0])
+        for a, b in zip(lc[1:], lg[1:]):
+            assert abs(a - b) <= 1e-3 * abs(a)
+
+    def test_checkpoint_round_trip_on_the_card(self, cuda, tmp_path):
+        from repro_torch.checkpoint import Checkpointer
+        tree = ({"w": torch.randn(33, 7, device=cuda),
+                 "h": torch.randn(5, device=cuda).to(torch.bfloat16)},
+                {"count": torch.tensor(4, dtype=torch.int32, device=cuda)})
+        ck = Checkpointer(tmp_path)
+        ck.save(2, tree)
+        like = _to_zeros(tree)
+        step, back, _ = ck.restore(like)
+        assert step == 2
+        assert back[0]["w"].device.type == "cuda"
+        assert torch.equal(back[0]["w"], tree[0]["w"])
+        assert back[0]["h"].dtype == torch.bfloat16
+        assert torch.equal(back[0]["h"], tree[0]["h"])
+        assert int(back[1]["count"]) == 4
+
+
+def _to_zeros(tree):
+    if isinstance(tree, dict):
+        return {k: _to_zeros(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_zeros(v) for v in tree)
+    return torch.zeros_like(tree)

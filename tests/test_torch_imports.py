@@ -106,7 +106,15 @@ def test_fresh_import_loads_no_jax_and_no_reference():
                 "repro_torch.models.model", "repro_torch.runtime",
                 "repro_torch.runtime.elastic",
                 "repro_torch.runtime.serve_loop",
-                "repro_torch.serving.scheduler", "repro_torch.launch.serve"}
+                "repro_torch.serving.scheduler", "repro_torch.launch.serve",
+                "repro_torch.kernels.conv_im2col.kernel",
+                "repro_torch.tree", "repro_torch.optim",
+                "repro_torch.optim.optimizers",
+                "repro_torch.optim.compression", "repro_torch.data",
+                "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                "repro_torch.checkpoint.checkpointer",
+                "repro_torch.runtime.train_loop",
+                "repro_torch.launch.train"}
     assert expected <= set(rep["modules"])
 
 
@@ -115,7 +123,8 @@ def test_no_import_statement_names_jax_or_the_reference():
                      r"|from repro\.)", re.M)
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-        ROOT / "examples" / "serve_lm_torch.py"]
+        ROOT / "examples" / "serve_lm_torch.py",
+        ROOT / "examples" / "train_lm_torch.py"]
     hits = [f"{f}:{m.group(0)}" for f in files
             for m in pat.finditer(f.read_text())]
     assert hits == []
@@ -176,6 +185,28 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
         serve.main(["--requests", "1", "--max-new", "1"])
     assert serve.main(["--requests", "1", "--max-new", "1",
                        "--device", "cpu"]) == 0
+    # the training path (slice F3)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime import TrainLoopConfig, train
+    shape = ShapeConfig("t", seq_len=8, global_batch=2, kind="train")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_batch(cfg, shape, 0)
+    assert make_batch(cfg, shape, 0, device="cpu")["tokens"].device.type \
+        == "cpu"
+    loop = TrainLoopConfig(total_steps=1, ckpt_dir=str(tmp_path / "t"),
+                           log_every=0)
+    opt = adamw(warmup_cosine(1e-3, 1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, shape, opt, loop=loop)
+    assert train(cfg, shape, opt, loop=loop, device="cpu").step == 1
+    argv = ["--steps", "1", "--d-model", "32", "--layers", "1", "--seq",
+            "8", "--batch", "2", "--ckpt-dir", str(tmp_path / "cli")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(argv)
+    assert train_cli.main(argv + ["--device", "cpu"]) == 0
 
 
 def test_mesh_executables_are_not_ported_yet():

@@ -263,6 +263,36 @@ def test_decode_with_a_position_per_row(arch):
                        c[lk][name].numpy(), REL)
 
 
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_decode_past_the_sliding_window(impl):
+    """gemma2 (scaled-down window 16): a 22-token prefill, then 6 decode
+    steps at positions 22-27, past the window, then ``forward_train`` at
+    T = 30, each against the reference at ``REL``."""
+    cfg = _cfg("gemma2-9b")
+    assert 0 < cfg.sliding_window < 22
+    rp, tp = _params("gemma2-9b")
+    toks = _tokens(cfg, 9, (B, 30))
+    rrt, trt = R.ModelRuntime(attn_impl=impl), T.ModelRuntime(
+        attn_impl=impl)
+    rl, rc = R.prefill(cfg, rp, {"tokens": jnp.asarray(toks[:, :22])},
+                       R.ShardingPlan(), rrt, max_seq=32)
+    tl, tc = T.prefill(cfg, tp, {"tokens": torch.from_numpy(toks[:, :22])},
+                       T.ShardingPlan(), trt, max_seq=32)
+    _close(tl.numpy(), rl, REL)
+    for pos in range(22, 28):
+        nxt = toks[:, pos:pos + 1]
+        rl, rc = R.decode_step(cfg, rp, rc, jnp.asarray(nxt), pos,
+                               R.ShardingPlan(), rrt)
+        tl, tc = T.decode_step(cfg, tp, tc, torch.from_numpy(nxt), pos,
+                               T.ShardingPlan(), trt)
+        _close(tl.numpy(), rl, REL)
+    want = R.forward_train(cfg, rp, {"tokens": jnp.asarray(toks)},
+                           R.ShardingPlan(), rrt)
+    got = T.forward_train(cfg, tp, {"tokens": torch.from_numpy(toks)},
+                          T.ShardingPlan(), trt)
+    _close(got.numpy(), want, REL)
+
+
 @pytest.mark.parametrize("t,chunk,softcap", [(1024, 0, 0.0),
                                               (1536, 0, 30.0),
                                               (2048, 512, 0.0)])

@@ -143,6 +143,30 @@ checkout of the repository.  Phases, each of which raises on failure:
    per layer; logits within 1e-4 of the plain prefill's largest), and
    ``loss_fn`` with ``attn_impl="flash"`` under grad refused before K6
    launches.
+14. mesh: worlds of 4 and then 2 ranks (``launch.mesh.run_spmd``), all
+   on the one card over gloo (NCCL refuses two ranks on one device): a
+   functional check of the mesh path, not a measurement of multi-GPU
+   scaling.  First each collective the mesh executables issue, on CUDA
+   tensors, against its expected values; then (a) AlexNet 227 x 227 at
+   batch 8 under ``H100_SPEC`` PBQP (kernels priced) on ``{data: 2}``
+   and ``{data: 2, model: 2}``, its mode and node counts printed, its
+   host-clock forward beside the single-device plan's (that one alone on
+   the card); (b) the reference's towers in the four modes:
+   ``conv_stack`` "shard_map" and ``conv_tower`` "gspmd" on ``{data:
+   2}``, ``bottleneck_tower`` "tp_shard_map" on ``{data: 2, model:
+   2}``, ``uniform_stack`` (depth 6) "pipeline" on ``{stage: 4}``; (c)
+   each kernel primitive pinned into AlexNet (GoogLeNet for the 1x1
+   GEMM) at batch 4, every node dp on ``{data: 2}``, tp wherever
+   ``tp_feasible`` admits it on ``{data: 2, model: 2}``; (d) a mesh
+   ``PlanServer`` on ``{data: 2}`` against a meshless one on 16
+   requests over 7 buckets, then a fresh mesh server on its cache that
+   solves nothing.  (b)'s collective probe, cases and checks and (d)'s
+   servers are ``tests/_torch_mesh_cases.py``'s, which the card tests'
+   ``TestMesh`` runs too.  Every compared output on every rank within
+   ``NET_REL`` of the largest magnitude of its single-device plan and
+   of a plain one, where no kernel runs: the SUM2D plan on the card for
+   (a) and (c), the same selection on the CPU for (b); (b)'s and (c)'s
+   launches one per kernel conv on every rank.
 
 Plans are compared at every conv's output, the pre-softmax logits and
 the probabilities, each within 1e-3 of the reference's largest
@@ -164,7 +188,9 @@ a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.  Phase 11's served runs
 are paths too (``lm_serve``, ``lm_serve_warm``), as is its CLI run
 (``lm_cli``); K6's ``launches`` are ``lm_serve``'s, and every path's
-count, phase 12's and 13's included, is listed beside them.
+count, phase 12's and 13's included, is listed beside them.  Phase 14's
+mesh forwards are paths on every rank (``mesh_<mode>_<net>_<mesh>_r<rank>``,
+counts at 0 in that rank just before its forward, read just after).
 """
 from __future__ import annotations
 
@@ -2930,6 +2956,304 @@ def training_phase(torch, dev, paths, attn_rpt):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------
+# phase 14: the mesh on the card
+# ---------------------------------------------------------------------
+#: phase 14: the worlds (ranks sharing ``cuda:0`` over gloo) and their
+#: meshes, AlexNet's batch on them (PBQP) and the pinned kernels' batch
+#: (the smallest that divides over a 2 x 2 mesh's batch axes)
+MESH_BATCH, MESH_PINNED_BATCH = 8, 4
+MESH_TIMEOUT_S = 120.0
+#: phase 14: AlexNet's and GoogLeNet's resolution (``alexnet(scale)``) and
+#: the host-clock forwards timed; the worlds get both as arguments
+MESH_SCALE, MESH_REPS = 1.0, 10
+#: phase 14 (d): the mesh server's 16 requests, H and W drawn from this
+#: range: buckets 16, 32 and 64 at ``BucketPolicy(min_hw=8, max_hw=64)``
+MESH_SERVE_HW = (12, 40)
+
+
+def mesh_path(torch, dev, paths, name, cnet, x, want):
+    """One mesh forward as a path: this rank's counts at 0 just before,
+    read just after; ``want`` the launches this rank must make (none on
+    the CPU, where every wrapper runs its plain version)."""
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    sync(torch, dev)
+    reset_launch_counts()
+    out = cnet(x)
+    sync(torch, dev)
+    paths[name] = launch_counts()
+    want = want if dev.type == "cuda" else {}
+    check(paths[name] == want, f"path {name}: launches {paths[name]}, "
+          f"expected {want}")
+    return out
+
+
+def mesh_alexnet(torch, dev, mesh, axes, label, paths, scale, reps):
+    """(a): AlexNet 227 x 227 at batch ``MESH_BATCH``, ``H100_SPEC`` PBQP
+    with the kernels priced on ``axes``, against the single-device PBQP
+    plan and the SUM2D plan (every conv the plain textbook routine) at
+    every tap; the host-clock forward of the mesh and one-device PBQP
+    plans."""
+    import torch.distributed as dist
+
+    from repro_torch.convnets import alexnet
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.core.plan import compile_plan, measure
+    from repro_torch.core.selection import select_pbqp, select_sum2d
+    from repro_torch.kernels import expected_launches
+    cost = AnalyticCostModel(H100_SPEC, include_kernels=True)
+    net = alexnet(scale).with_batch(MESH_BATCH)
+    params = net.init_params(seed=0)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(MESH_BATCH,) + net.nodes["data"].out_shape).astype(
+            np.float32)).to(dev)
+    sel = select_pbqp(net, cost, mesh_axes=axes)
+    one_sel = select_pbqp(net, cost)
+    t_ = taps(net)
+    # jit=True (the default) is accepted on a mesh and captures nothing
+    cn = compile_plan(sel, params, batch=MESH_BATCH, mesh=mesh, device=dev,
+                      outputs=t_)
+    one = compile_plan(one_sel, params, batch=MESH_BATCH, device=dev,
+                       jit=False, outputs=t_)
+    name = f"mesh_{cn.mesh_mode}_alexnet_{label}"
+    out = mesh_path(torch, dev, paths, name, cn, x, expected_launches(sel))
+    check(cn.graph is None, f"{name}: a mesh executable was captured")
+    agree(out, one(x), f"{name} vs the single-device PBQP plan")
+    agree(out, compile_plan(select_sum2d(net, cost), params,
+                            batch=MESH_BATCH, device=dev, jit=False,
+                            outputs=t_)(x),
+          f"{name} vs SUM2D on one device (no kernel)")
+    bare = compile_plan(sel, params, batch=MESH_BATCH, mesh=mesh,
+                        device=dev)
+    t_mesh = measure(bare, x, reps=reps)
+    dist.barrier()
+    t_one = None
+    if dist.get_rank() == 0:   # alone on the card
+        t_one = measure(compile_plan(one_sel, params, batch=MESH_BATCH,
+                                     device=dev, jit=False), x, reps=reps)
+    dist.barrier()
+    return {"path": name, "mode": cn.mesh_mode, "dp": cn.dp_nodes,
+            "tp": cn.tp_nodes, "pp": cn.pp_nodes,
+            "convs": {n.id: (sel.choices[n.id].primitive.name,
+                             str(sel.choices[n.id].placement))
+                      for n in net.conv_nodes()},
+            "mesh_ms": t_mesh["mean_s"] * 1e3,
+            "mesh_min_ms": t_mesh["min_s"] * 1e3,
+            "one_ms": None if t_one is None else t_one["mean_s"] * 1e3,
+            "one_min_ms": None if t_one is None else t_one["min_s"] * 1e3}
+
+
+def mesh_pinned(torch, dev, mesh, axes, label, paths, scale):
+    """(c): each kernel primitive pinned by ``select_fixed`` onto every
+    conv that supports it (AlexNet; GoogLeNet for the 1x1 GEMM), every
+    node ``dp``, or on a ``model`` axis ``tp`` wherever
+    ``PlacementPricing.tp_feasible`` admits the pinned primitive, at
+    batch ``MESH_PINNED_BATCH``: one launch per kernel conv on every
+    rank, and every tap within ``NET_REL`` of the same selection's
+    single-device plan and of the net's SUM2D plan (every conv the plain
+    textbook routine): the kernels at the shards' shapes, held against
+    plain versions."""
+    import dataclasses
+
+    from repro_torch.convnets import alexnet, googlenet
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.primitives import registry
+    from repro_torch.core.selection import (PlacementPricing, select_fixed,
+                                            select_sum2d)
+    from repro_torch.kernels import expected_launches
+    cost = AnalyticCostModel(H100_SPEC, include_kernels=True)
+    b = MESH_PINNED_BATCH
+    rng = np.random.default_rng(0)
+    nets = {}
+    res = []
+    for prim in (p for p in registry() if "kernel" in p.tags):
+        which = "googlenet" if prim.name == "pallas_pw_gemm_chw" else \
+            "alexnet"
+        if which not in nets:
+            net = (googlenet if which == "googlenet" else alexnet)(
+                scale).with_batch(b)
+            params = net.init_params(seed=0)
+            x = torch.from_numpy(rng.normal(
+                size=(b,) + net.nodes["data"].out_shape).astype(
+                    np.float32)).to(dev)
+            nets[which] = (net, params, x, compile_plan(
+                select_sum2d(net, cost), params, batch=b, device=dev,
+                jit=False, outputs=taps(net))(x))
+        net, params, x, plain = nets[which]
+        pick = {nd.id: prim for nd in net.conv_nodes()
+                if prim.supports(nd.scn)}
+        psel = select_fixed(net, cost, pick, f"pinned_{prim.name}")
+        pricing = PlacementPricing(net, cost, axes)
+
+        def place(nid):
+            node = net.nodes[nid]
+            if "model" in axes and node.kind == "conv" and \
+                    pricing.tp_feasible(node, psel.choices[nid].primitive):
+                return "tp"
+            return "dp"
+        psel = dataclasses.replace(psel, choices={
+            nid: dataclasses.replace(ch, placement=place(nid))
+            for nid, ch in psel.choices.items()})
+        t_ = taps(net)
+        cn = compile_plan(psel, params, batch=b, mesh=mesh, device=dev,
+                          jit=False, outputs=t_)
+        name = f"mesh_{cn.mesh_mode}_pinned_{prim.name}_{which}_{label}"
+        out = mesh_path(torch, dev, paths, name, cn, x,
+                        expected_launches(psel))
+        agree(out, compile_plan(psel, params, batch=b, device=dev,
+                                jit=False, outputs=t_)(x),
+              f"{name} vs the same selection on one device")
+        agree(out, plain, f"{name} vs SUM2D on one device (no kernel)")
+        res.append({"path": name, "convs": len(pick), "tp": cn.tp_nodes,
+                    "dp": cn.dp_nodes, "mode": cn.mesh_mode})
+    return res
+
+
+def mesh_towers(dev, cases, paths):
+    """(b): the shared mesh cases ``cases`` (``tests/_torch_mesh_cases.py``,
+    the reference's towers at batch 8 under ``AnalyticCostModel()``, as
+    ``tests/test_distributed.py`` solves them) on this world, each held
+    by the cases' own check: its mode, nothing captured, its path's
+    launches, and every conv and sink within ``NET_REL`` of the same
+    selection without a mesh on the card and on the CPU."""
+    import _torch_mesh_cases as C
+    got = C.plan_cases({c: C.CARD_CASES[c] for c in cases}, dev.type)
+    res = []
+    for c in cases:
+        C.check_card_case(c, got[c], NET_REL, dev.type)
+        paths[got[c]["path"]] = got[c]["launches"]
+        res.append({k: got[c][k] for k in ("path", "mode", "dp", "tp",
+                                           "pp")})
+    return res
+
+
+def mesh_world_two(dev_type, scale, reps, cache_dir):
+    """Phase 14's world of 2 ranks: (a) and (c) on ``{data: 2}``, the
+    two {dp, rep} towers of (b), and (d): a mesh ``PlanServer`` and a
+    meshless one on 16 requests (H and W from ``MESH_SERVE_HW``), then
+    a fresh mesh server on ``cache_dir`` that must solve nothing."""
+    import _torch_mesh_cases as C
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import BucketPolicy
+    from repro_torch.serving.bucketing import bucket_shape
+    dev = torch.device(dev_type)
+    paths, res = {}, {}
+    axes = {"data": 2}
+    mesh = make_mesh((2,), ("data",), dev)
+    res["alexnet"] = mesh_alexnet(torch, dev, mesh, axes, "data2", paths,
+                                  scale, reps)
+    res["towers"] = mesh_towers(dev, ("conv_stack_data2",
+                                      "conv_tower_data2"), paths)
+    res["pinned"] = mesh_pinned(torch, dev, mesh, axes, "data2", paths,
+                                scale)
+    srv = C.serve_cases(cache_dir, dev_type, ((2,), ("data",)),
+                        MESH_SERVE_HW)
+    policy = BucketPolicy(**C.SERVER_POLICY)
+    res["server"] = {
+        "rel_err": C.check_serve(srv, NET_REL),
+        "mesh_compiles": srv["stats"]["mesh_compiles"],
+        "compiles": srv["stats"]["compiles"],
+        "buckets": sorted({bucket_shape(x.shape, policy)
+                           for x in C.server_stream(MESH_SERVE_HW)})}
+    res["paths"] = paths
+    return res
+
+
+def mesh_world_four(dev_type, scale, reps, cache_dir):
+    """Phase 14's world of 4 ranks: the collective probe first, then (a)
+    and (c) on ``{data: 2, model: 2}``, and (b)'s tp tower on it and
+    pipeline on ``{stage: 4}``."""
+    import _torch_mesh_cases as C
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device(dev_type)
+    paths, res = {}, {}
+    res["collectives"] = C.collectives(dev_type)["names"]
+    axes = {"data": 2, "model": 2}
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    res["alexnet"] = mesh_alexnet(torch, dev, mesh, axes, "data2xmodel2",
+                                  paths, scale, reps)
+    res["towers"] = mesh_towers(dev, ("bottleneck_data2_model2",), paths) \
+        + mesh_towers(dev, ("uniform_stack_stage4",), paths)
+    res["pinned"] = mesh_pinned(torch, dev, mesh, axes, "data2xmodel2",
+                                paths, scale)
+    res["paths"] = paths
+    return res
+
+
+def mesh_phase(dev, paths):
+    """Phase 14: the mesh executables and the mesh server on the card,
+    as ``run_spmd`` worlds of ranks sharing ``dev`` over gloo (NCCL
+    refuses two ranks on one GPU): a functional check of the mesh path,
+    not a measurement of multi-GPU scaling.  Adds each rank's paths to
+    ``paths`` as ``<path>_r<rank>``."""
+    from repro_torch.launch.mesh import stop_spmd
+    # the mesh cases are shared with the tests; spawned ranks inherit
+    # this path
+    sys.path.insert(0, str(ROOT / "tests"))
+    card = gpu_line() if dev.type == "cuda" else "cpu"
+    try:
+        for world, fn in ((4, mesh_world_four), (2, mesh_world_two)):
+            mesh_world(dev, world, fn, paths, card)
+    finally:  # the fork server and resource tracker must not outlive us
+        stop_spmd()
+
+
+def mesh_world(dev, world, fn, paths, card):
+    """One world of phase 14: run ``fn`` on ``world`` ranks, add their
+    paths to ``paths`` and print what they found."""
+    from repro_torch.launch.mesh import default_backend, run_spmd
+    backend = default_backend(dev, world)
+    check(backend == "gloo" or dev.type == "cpu",
+          f"a world of {world} ranks on one card took {backend}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh_plans") as cache:
+        ranks = run_spmd(fn, world,
+                         args=(dev.type, MESH_SCALE, MESH_REPS, cache),
+                         device=dev, timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    tag = f"{backend}, {world} ranks on one card ({card})"
+    print(f"  world of {world} ranks: {wall:.1f} s wall, spawn included"
+          f" [{tag}]")
+    if "collectives" in ranks[0]:
+        print(f"  collectives on {dev.type} tensors under {backend}, "
+              f"each checked on every rank: "
+              f"{', '.join(ranks[0]['collectives'])}")
+    for r, res in enumerate(ranks):
+        for p, counts in res["paths"].items():
+            paths[f"{p}_r{r}"] = counts
+    a = ranks[0]["alexnet"]
+    print(f"  (a) {a['path']}: dp {a['dp']}, tp {a['tp']}, pp "
+          f"{a['pp']} nodes; convs {a['convs']}")
+    print(f"      host-clock forward, batch {MESH_BATCH}, {MESH_REPS} reps "
+          f"[{tag}]: mesh mean {a['mesh_ms']:.4f} ms (min "
+          f"{a['mesh_min_ms']:.4f}, ranks "
+          f"{[round(q['alexnet']['mesh_ms'], 4) for q in ranks]}); "
+          f"single-device plan alone on the card: mean "
+          f"{a['one_ms']:.4f} ms (min {a['one_min_ms']:.4f})")
+    for t in ranks[0]["towers"]:
+        print(f"  (b) {t['path']}: mode {t['mode']}, dp {t['dp']}, tp "
+              f"{t['tp']}, pp {t['pp']} nodes")
+    for p in ranks[0]["pinned"]:
+        print(f"  (c) {p['path']}: {p['convs']} kernel convs, tp "
+              f"{p['tp']}, dp {p['dp']} nodes; launches per rank "
+              f"{[q['paths'][p['path']] for q in ranks]}")
+    if "server" in ranks[0]:
+        s = ranks[0]["server"]
+        print(f"  (d) mesh PlanServer, 16 requests over buckets "
+              f"{s['buckets']}: {s['mesh_compiles']} of "
+              f"{s['compiles']} executables mesh-sharded, answers "
+              f"within {s['rel_err']:.3e} of the meshless server's "
+              f"largest; a fresh server on its cache solved nothing")
+    print("  every compared output agrees on every rank with its "
+          "single-device plan and a plain one (SUM2D on the card, or "
+          "the same selection on the CPU)")
+
+
 def main() -> int:
     try:
         import torch
@@ -3173,6 +3497,13 @@ def main() -> int:
     training_phase(torch, dev, paths,
                    next(r for r in reports if r.name == "flash_attention"))
     print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    # ---- 14. the mesh: compile_plan(mesh=) and PlanServer(mesh=) ----
+    print("== mesh: compile_plan(mesh=) in its four modes and the mesh "
+          "PlanServer, as worlds of ranks sharing the card over gloo ==")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_phase(dev, paths)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
     for r in reports:
         check(not r.on_path or any(c.get(r.name) for c in paths.values()),
               f"kernel {r.name} never launched on a path")

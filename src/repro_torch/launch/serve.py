@@ -41,7 +41,7 @@ Observability: ``--trace PATH`` writes one JSON line per span,
 ``--metrics-json PATH`` writes its stats snapshot.
 
 ``--mesh`` and ``--dp-mesh`` (mesh-sharded vision serving) are refused
-until the ROADMAP's slice G (multi-device).
+until the ROADMAP's slice G2.
 """
 from __future__ import annotations
 
@@ -80,10 +80,10 @@ def _parser() -> argparse.ArgumentParser:
                          "(0: all requests queued up front)")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
                     help="mesh-sharded vision serving: not ported yet "
-                         "(slice G)")
+                         "(slice G2)")
     ap.add_argument("--dp-mesh", type=int, default=0,
                     help="back-compat shorthand for --mesh dp=N: not "
-                         "ported yet (slice G)")
+                         "ported yet (slice G2)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write request-scoped trace spans as JSONL")
     ap.add_argument("--metrics-dump", action="store_true",
@@ -126,7 +126,7 @@ def main(argv=None) -> int:
     if args.mesh or args.dp_mesh > 1:
         raise NotImplementedError(
             "--mesh/--dp-mesh: mesh-sharded serving is not ported yet "
-            "(ROADMAP slice G, multi-device)")
+            "(ROADMAP slice G2)")
     if args.profile and args.vision_every <= 0:
         ap.error("--profile prices the vision plan path; it needs "
                  "--vision-every > 0 to have any effect")

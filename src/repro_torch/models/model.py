@@ -55,7 +55,7 @@ class ModelRuntime:
     reference's do.  Remat changes what autograd keeps, not what is
     computed.  ``chunk`` is the SSD chunk size.  The reference's
     ``moe_impl`` comes with the expert-parallel route on a mesh (slice
-    G); its ``unroll`` and ``unroll_chunks`` have no counterpart: the
+    G2); its ``unroll`` and ``unroll_chunks`` have no counterpart: the
     port's loops over the superblocks and the SSD chunks are Python
     loops, so there is nothing to unroll."""
     attn_impl: str = "xla"        # "xla" | "xla_chunked" | "flash"

@@ -17,7 +17,7 @@ its top-k through ``torch.topk`` (ties may be ordered otherwise than
 Dispatch, the expert FFNs and the combine are framework ops here as in
 the reference: no kernel of the port is on this path.  The reference's
 expert-parallel ``moe_ffn_alltoall`` (``shard_map`` all-to-alls) needs a
-mesh and comes with the ROADMAP's slice G.
+mesh and comes with the ROADMAP's slice G2.
 """
 from __future__ import annotations
 

@@ -7,8 +7,8 @@ entry per dimension: a mesh axis, a tuple of them, or None).
 
 The port runs on one device: :class:`ShardingPlan` without a mesh makes
 :meth:`~ShardingPlan.constrain` the identity, as the reference's does,
-and a mesh is refused until the ROADMAP's slice G (multi-device) brings
-meshes to the port.
+and a mesh is refused until the ROADMAP's slice G2 brings the LM mesh
+to the port.
 
 :func:`init_from_defs` draws the reference's distributions from a
 ``torch.Generator``: the values differ from those of the reference's
@@ -88,7 +88,8 @@ REPLICATED_RULES = Rules((
 class ShardingPlan:
     """Resolved plan: mesh + rules (+ per-annotation overrides).
 
-    Single-device only: ``mesh`` must be None (meshes are slice G)."""
+    Single-device only: ``mesh`` must be None (LM meshes are slice
+    G2)."""
 
     mesh: Optional[Any] = None
     rules: Rules = MEGATRON_RULES
@@ -98,7 +99,7 @@ class ShardingPlan:
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded LM plans are not ported yet (ROADMAP slice "
-                "G, multi-device); use ShardingPlan(mesh=None)")
+                "G2); use ShardingPlan(mesh=None)")
 
     def constrain(self, x, *axes: Optional[str], name: str = ""):
         """Annotate an activation with logical axes: the identity on one

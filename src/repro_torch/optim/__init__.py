@@ -1,6 +1,6 @@
 """Optimizers and gradient compression of the port (``optim/``), over
 nested dicts of tensors.  ``compressed_psum_tree`` (a collective over a
-mesh axis) comes with the ROADMAP's slice G."""
+mesh axis) comes with the ROADMAP's slice G2."""
 from .compression import dequantize_int8, quantize_int8
 from .optimizers import (
     Optimizer, adafactor, adamw, clip_by_global_norm, for_config,

@@ -4,7 +4,7 @@ reference's ``optim/compression.py``).
 int8 quantisation with a per-tensor scale, optionally with stochastic
 rounding: the pseudo-gradient exchanged between pods shrinks 4x.  The
 reference's ``compressed_psum_tree`` is an all-reduce over a named mesh
-axis; it comes with the ROADMAP's slice G (multi-device).
+axis; it comes with the ROADMAP's slice G2 (the LM mesh).
 """
 from __future__ import annotations
 

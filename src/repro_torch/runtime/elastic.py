@@ -7,8 +7,10 @@ Two elasticity axes live here:
 * **Device elasticity** — on a real cluster the coordinator advertises
   the healthy device set; when it changes (node failure, capacity
   grant) the controller rebuilds the mesh + sharding rules for the new
-  shape.  The port has no meshes yet: :meth:`ElasticController.current`
-  raises until the ROADMAP's slice G (multi-device).
+  shape.  The port's meshes run the conv executables
+  (:mod:`repro_torch.launch.mesh`), but the LM sharding rules they would
+  be rebuilt with are the ROADMAP's slice G2: :meth:`ElasticController.
+  current` raises until then.
 
 * **Worker elasticity** — the serving side: the continuous-batching
   scheduler (:mod:`repro_torch.serving.scheduler`) asks
@@ -72,7 +74,7 @@ class ElasticController:
         """Returns (mesh, plan, changed)."""
         raise NotImplementedError(
             "ElasticController.current() re-meshes the training path; "
-            "meshes are not ported yet: ROADMAP slice G (multi-device)")
+            "LM meshes are not ported yet: ROADMAP slice G2")
 
     # -----------------------------------------------------------------
     # worker elasticity (serving path)

@@ -44,8 +44,21 @@ Port of the reference's ``serving/server.py``.  What differs:
 * **The device.**  ``device`` (default: the card, which must be
   present) is where every executable runs; ``device="cpu"`` serves the
   plain PyTorch versions.  Outputs come back to the host as numpy.
-* **No mesh.**  The mesh modes are the ROADMAP's slice G: ``mesh=``
-  raises ``NotImplementedError``, as ``compile_plan`` does.
+* **The mesh is SPMD.**  With a ``DeviceMesh`` (``mesh=``), batched
+  buckets solve the unified choice space (primitive x layout x device
+  placement, ``select_pbqp(..., mesh_axes=)``), plans with a sharded
+  node compile mesh-sharded (``compile_plan(..., mesh=)``), and the
+  mesh fingerprint joins every cache key, as in the reference.  Every
+  rank of the mesh runs its own server on the same request stream, and
+  a mesh executable's collectives must be issued in the same order on
+  every rank, or the ranks deadlock.  So with a mesh the server solves,
+  compiles, warms up and runs on the caller's thread, in request
+  order: :meth:`PlanServer.prefetch` computes before it returns, and
+  :meth:`PlanServer.infer_batch` takes its groups one after another.
+  Drive a mesh server from one thread.  Only rank 0 writes the disk
+  tier of the plan cache, between two barriers of all ranks (every rank
+  reads the tier before the write, and none runs on before it).  A mesh compile or run that fails for any reason but an
+  injected fault raises: no ladder rung carries on without the mesh.
 * **No fallback hides the card.**  On the card an exception that no
   fault injector raised (a kernel that does not build, a capture that
   fails, a launcher's error) propagates to the caller: the retry,
@@ -76,12 +89,14 @@ from threading import RLock
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from ..core.costs import CostModel
 from ..core.graph import Net
-from ..core.plan import CompiledNet, compile_plan
+from ..core.plan import CompiledNet, compile_plan, mesh_shape_dict
 from ..core.selection import SelectionResult, select_local_optimal
 from ..kernels.common import resolve_device
+from ..launch.mesh import mesh_fingerprint
 from ..obs.trace import get_tracer
 from ..reliability import (FallbackLadder, FaultInjector, KernelFailure,
                            PrimitiveQuarantine, diagnose_nonfinite,
@@ -123,6 +138,12 @@ class PlanServer:
     device:
         Where the executables run: the card unless ``"cpu"`` is asked
         for (without a GPU the default raises).
+    mesh:
+        A ``DeviceMesh`` of the device's type for batched executables:
+        batch-bucket solves gain the placement axis over the mesh's axes
+        (dp on the batch axes, tp on "model", pp stages on "stage"),
+        and sharded plans compile mesh-sharded.  Every rank of the mesh
+        serves the same requests in the same order, from one thread.
     """
 
     def __init__(self, net_builder: Callable[[Shape], Net],
@@ -139,23 +160,28 @@ class PlanServer:
                  compile_backoff_s: float = 0.05,
                  kernel_retries: int = 1,
                  guard_outputs: bool = True, device=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is not ported yet (ROADMAP slice G, "
-                "multi-device)")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot serve "
+                             f"{self.device.type} executables")
         self.net_builder = net_builder
         self.cost = cost_model
         self.fuse = fuse
-        #: always None: single-device executables only (slice G)
-        self.mesh = None
-        self._mesh_axes = None
+        #: device mesh for batched executables: batch-bucket solves gain
+        #: the placement axis over the mesh's axes, and sharded plans
+        #: compile mesh-sharded (``infer_batch`` then runs each bucket
+        #: group sharded across the mesh)
+        self.mesh = mesh
+        self._mesh_axes = mesh_shape_dict(mesh) if mesh is not None \
+            else None
         # a fused and an unfused plan for the same bucket are different
-        # plans (edges priced and realized differently), and a plan of
-        # this package is not the reference's to serve — fold both into
-        # the version string every cache tier keys on
+        # plans (edges priced and realized differently), so is the same
+        # bucket solved for a different mesh topology, and a plan of
+        # this package is not the reference's to serve — fold all three
+        # into the version string every cache tier keys on
         self.cost_version = cost_model.version() + "+torch" + \
-            ("+fuse" if fuse else "")
+            ("+fuse" if fuse else "") + \
+            (f"+mesh={mesh_fingerprint(mesh)}" if mesh is not None else "")
         self.policy = policy or BucketPolicy()
         self.exact = exact
         self.params_seed = params_seed
@@ -258,7 +284,17 @@ class PlanServer:
                    warm_dist=sel.solver_stats.get("WARM_DIST", -1))
             self._plans[pkey] = sel
             if self._disk is not None:
-                self._disk.put(key, selection_to_payload(sel))
+                if self.mesh is None:
+                    self._disk.put(key, selection_to_payload(sel))
+                else:
+                    # one writer per mesh (which spans the world, as
+                    # make_mesh builds it), after every rank has read the
+                    # tier: a rank that read the new file would skip this
+                    # solve and its barriers
+                    dist.barrier()
+                    if dist.get_rank() == 0:
+                        self._disk.put(key, selection_to_payload(sel))
+                    dist.barrier()
             return sel
 
     def _nearest_plan(self, pkey: PlanKey) -> Optional[SelectionResult]:
@@ -342,8 +378,14 @@ class PlanServer:
             if self.fault_injector is not None:
                 self.fault_injector.raise_if("compile", key=bkey)
             params = s.net.init_params(self.params_seed)
+            # Mesh-sharded compilation only when the plan actually
+            # carries sharded (dp/tp/pp) nodes — an all-rep plan on a
+            # mesh is just the plain executable.
+            mesh = self.mesh if nb > 1 and any(
+                ch.placement != "rep" for ch in s.choices.values()) \
+                else None
             cnet = compile_plan(s, params, jit=self.jit, batch=nb,
-                                device=self.device)
+                                device=self.device, mesh=mesh)
             warm_in = np.zeros(bshape if nb == 1 else (nb, *bshape),
                                np.float32)
             # with jit on the card, this call is the capture
@@ -388,9 +430,12 @@ class PlanServer:
         no fault injector raised is the port's own failure (a kernel that
         does not build or launch, a capture that fails), and retrying,
         demoting or quarantining it would hide the card behind library
-        routines.  On the CPU nothing does, as in the reference."""
-        return self.device.type == "cuda" and \
-            not isinstance(exc, InjectedFault)
+        routines.  With a mesh the same holds on the CPU: a failed
+        collective (ranks that disagree on a plan, a rank gone) must not
+        be demoted to a plan that runs without the mesh.  Otherwise
+        nothing escapes, as in the reference."""
+        return (self.device.type == "cuda" or self.mesh is not None) \
+            and not isinstance(exc, InjectedFault)
 
     def _compile_fallback_plan(self, sel: SelectionResult, bkey: str
                                ) -> Tuple[SelectionResult, str]:
@@ -415,8 +460,18 @@ class PlanServer:
         """Async solve+compile for a bucket (returns a Future[CompiledNet]).
 
         Misses are resolved on the server's worker pool so the caller's
-        latency-sensitive loop never blocks on a cold bucket."""
-        return self._pool.submit(self.compiled_for, shape_chw, n)
+        latency-sensitive loop never blocks on a cold bucket.  With a
+        mesh the work runs on the caller's thread before this returns
+        (a done Future): the ranks' collectives must keep request
+        order."""
+        if self.mesh is None:
+            return self._pool.submit(self.compiled_for, shape_chw, n)
+        fut: Future = Future()
+        try:
+            fut.set_result(self.compiled_for(shape_chw, n))
+        except Exception as exc:
+            fut.set_exception(exc)
+        return fut
 
     def resize_workers(self, n: int) -> None:
         """Retarget the worker pool's concurrency (elastic scaling).
@@ -681,10 +736,11 @@ class PlanServer:
                                chunk))
         # overlap cold solves+compiles of *distinct* (bucket, batch)
         # executables on the worker pool: a flush spanning G cold
-        # groups then waits for the slowest compile, not the sum
+        # groups then waits for the slowest compile, not the sum.  A
+        # mesh server takes them in request order on this thread.
         specs = {(bshape, nb) for bshape, nb, _ in chunks}
         prefetched = {spec: self.prefetch(*spec) for spec in specs} \
-            if len(specs) > 1 else {}
+            if len(specs) > 1 and self.mesh is None else {}
         results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(imgs)
         seen_specs = set()
         for bshape, nb, chunk in chunks:

@@ -1326,3 +1326,49 @@ def _to_zeros(tree):
     if isinstance(tree, tuple):
         return tuple(_to_zeros(v) for v in tree)
     return torch.zeros_like(tree)
+
+
+@pytest.mark.gpu
+class TestMesh:
+    """The mesh executables on the card: worlds of ranks sharing
+    ``cuda:0`` over gloo (``run_spmd``; NCCL refuses two ranks on one
+    device), the cases of ``tests/_torch_mesh_cases.py``, held as
+    ``chip_smoke.py``'s phase 14 holds them."""
+
+    def test_gloo_collectives_on_cuda_tensors(self, cuda):
+        import _torch_mesh_cases as C
+        from repro_torch.launch.mesh import default_backend, run_spmd
+        assert default_backend("cuda", 4) == "gloo"
+        ranks = run_spmd(C.collectives, 4, args=("cuda",), device="cuda",
+                         timeout_s=120.0)
+        for got in ranks:
+            assert got["devices"] == ["cuda"]
+            assert "all_to_all_single" in got["names"]
+
+    @pytest.mark.parametrize("world,cases", [
+        (2, ("conv_stack_data2", "conv_tower_data2")),
+        (4, ("bottleneck_data2_model2",)),
+        (4, ("uniform_stack_stage4",))])
+    def test_four_modes_match_one_device(self, cuda, world, cases):
+        """Each mode as the CPU tests give it; every rank's outputs (every
+        conv and sink) within 1e-3 of the largest magnitude of the same
+        selection without a mesh, on the card and on the CPU; the path's
+        launches as expected; nothing captured (``jit=True`` is accepted
+        on a mesh and has no effect)."""
+        import _torch_mesh_cases as C
+        from repro_torch.launch.mesh import run_spmd
+        ranks = run_spmd(C.plan_cases, world,
+                         args=({c: C.CARD_CASES[c] for c in cases}, "cuda"),
+                         device="cuda", timeout_s=120.0)
+        for got in ranks:
+            for case in cases:
+                C.check_card_case(case, got[case], 1e-3)
+
+    def test_mesh_server_matches_plain(self, cuda, tmp_path):
+        import _torch_mesh_cases as C
+        from repro_torch.launch.mesh import run_spmd
+        ranks = run_spmd(C.serve_cases, 2,
+                         args=(str(tmp_path), "cuda", ((2,), ("data",))),
+                         device="cuda", timeout_s=120.0)
+        for r in ranks:
+            C.check_serve(r, 1e-3)

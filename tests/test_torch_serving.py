@@ -20,6 +20,7 @@ so that a Pallas primitive is served: the reference runs it in interpret
 mode, as its own tests do, the port its plain version.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -225,6 +226,17 @@ def test_a_shared_cache_dir_is_not_read_across_packages(tmp_path):
 
 
 def test_mesh_serving_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="slice G"):
-        TServer(lambda s: t_tower(s), TC.AnalyticCostModel(), mesh=object(),
+    """Mesh serving is ported (slice G1; ``tests/test_torch_mesh_server.py``
+    serves through it in gloo worlds).  Without a world, a server keys
+    its cache tiers on the mesh's topology and refuses a mesh of another
+    device type."""
+    mesh = types.SimpleNamespace(mesh_dim_names=("data",),
+                                 mesh=torch.arange(2), device_type="cpu")
+    srv = TServer(lambda s: t_tower(s), TC.AnalyticCostModel(), mesh=mesh,
+                  device="cpu")
+    assert srv.cost_version.endswith("+torch+mesh=cpu-data2")
+    srv.close()
+    mesh.device_type = "cuda"
+    with pytest.raises(ValueError, match="cuda mesh"):
+        TServer(lambda s: t_tower(s), TC.AnalyticCostModel(), mesh=mesh,
                 device="cpu")

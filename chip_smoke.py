@@ -167,6 +167,27 @@ checkout of the repository.  Phases, each of which raises on failure:
    of a plain one, where no kernel runs: the SUM2D plan on the card for
    (a) and (c), the same selection on the CPU for (b); (b)'s and (c)'s
    launches one per kernel conv on every rank.
+15. lm mesh: (a) TinyLlama-1.1B unscaled on ``{data: 2, model: 2}`` (4
+   ranks on the card over gloo) under the port's ``select_rules`` with
+   ``H100_SPEC`` (it must pick head-parallel attention, Megatron FFNs, a
+   replicated stream and embedding, the vocab-sharded head and the
+   batch-sharded cache), ``ShardingPlan(mesh=)`` over DTensor: 4 prompts
+   of 7-512 tokens prefilled at batch 1 with K6 on each rank's 16 / 2
+   heads, then 16 ``decode_step``s over 4 slots (``drop_free``); every
+   rank's logits within ``SERVE_REL`` of the single-device flash run's
+   largest, or no farther from a float64 evaluation than ``SERVE_REL``
+   or twice the single-device f32 run; K6 22 times per prefill on every
+   rank, none in decode; K6 at the shard's shape against its plain
+   version, timed; (b) one ``train_step`` at 2 layers of full width, seq
+   256 x batch 4, on the same mesh: loss and gradients against float64
+   as 13c holds them; (c) one Jamba-v0.1 MoE layer at full width through
+   ``moe_ffn_alltoall`` on ``{model: 2}`` against the single-device
+   ``moe_ffn`` within 1e-5 (no pair drops); (d) ``compressed_psum_tree``
+   over 4 ranks against the CPU's arithmetic; (e) ``python -m
+   repro_torch.launch.dryrun`` on one cell (a fake process group of 256
+   ranks).  The cases and gates are ``tests/_torch_mesh_lm_cases.py``'s,
+   shared with the card tests' ``TestMeshLM``; host times are labelled
+   gloo on one card, not scaling.
 
 Plans are compared at every conv's output, the pre-softmax logits and
 the probabilities, each within 1e-3 of the reference's largest
@@ -190,7 +211,8 @@ are paths too (``lm_serve``, ``lm_serve_warm``), as is its CLI run
 (``lm_cli``); K6's ``launches`` are ``lm_serve``'s, and every path's
 count, phase 12's and 13's included, is listed beside them.  Phase 14's
 mesh forwards are paths on every rank (``mesh_<mode>_<net>_<mesh>_r<rank>``,
-counts at 0 in that rank just before its forward, read just after).
+counts at 0 in that rank just before its forward, read just after), and
+so are phase 15's prefills and decode steps (``mesh_lm_<call>_r<rank>``).
 """
 from __future__ import annotations
 
@@ -3254,6 +3276,190 @@ def mesh_world(dev, world, fn, paths, card):
           "the same selection on the CPU)")
 
 
+# ---------------------------------------------------------------------
+# phase 15: the LM on a mesh (slice G2)
+# ---------------------------------------------------------------------
+#: (a): TinyLlama-1.1B's depth, unscaled, and the decode steps after the
+#: prompts; (b): the training step's (layers, seq, batch), at full width
+#: as 13c's (the float64 evaluation it is held to runs on the CPU)
+LM_MESH_LAYERS, LM_MESH_STEPS = 22, 16
+LM_MESH_TRAIN = (2, 256, 4)
+LM_MESH_TIMEOUT_S = 300.0
+#: (c): the all-to-all MoE against the single-device gather dispatch,
+#: which compute one function when no pair drops: f32 sums in other
+#: orders, 1e-5 of the largest magnitude
+MOE_A2A_REL = 1e-5
+
+
+def lm_mesh_grads(torch, out):
+    """(b)'s references on the CPU, into ``out``: the f32 loss and
+    gradients and a float64 evaluation, of the parameters the ranks
+    draw (seed 0, on the card's generator) and the same batch."""
+    import _torch_mesh_lm_cases as C
+    from repro_torch.models import ModelRuntime, ShardingPlan
+    from repro_torch.runtime.train_loop import loss_and_grads
+    cfg, batch = C.card_train_inputs(*LM_MESH_TRAIN)
+    p = out["params"]
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out["cpu"] = loss_and_grads(cfg, ShardingPlan(), ModelRuntime(), p, b)
+    out["f64"] = float64_grads(cfg, p, b)
+
+
+def lm_mesh_phase(torch, F, dev, paths, attn_rpt):
+    """Phase 15: (a) TinyLlama-1.1B unscaled on {data: 2, model: 2}
+    under the port's ``select_rules`` (H100 figures), each rank's
+    prefill and decode logits within ``SERVE_REL`` of the single-device
+    flash run, K6 once per layer and prefill on every rank and never in
+    decode; K6 at the shard's shape against its plain version; (b) one
+    ``train_step`` at 2 layers of full width on the same mesh, its loss
+    and gradients held to float64 as 13c holds them; (c) a Jamba-v0.1 MoE
+    layer at full width through ``moe_ffn_alltoall`` on {model: 2}
+    against the single-device ``moe_ffn``; (d) ``compressed_psum_tree``
+    over the 4 ranks against the CPU's arithmetic; (e) one dry-run cell
+    (``python -m repro_torch.launch.dryrun``) on the fake process group.
+    The worlds share the card over gloo: a functional check, not a
+    measurement of scaling.  Adds each rank's calls to ``paths``."""
+    import threading
+
+    # the cases are shared with the tests; spawned ranks inherit this path
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_mesh_lm_cases as C
+    from repro_torch.launch.mesh import run_spmd, stop_spmd
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves, unflatten
+    card = gpu_line() if dev.type == "cuda" else "cpu"
+    tag = f"gloo on one card, not scaling ({card})"
+    cfg = C.card_config(LM_MESH_LAYERS)
+    work = tempfile.mkdtemp(prefix="lm_mesh")
+    try:
+        t0 = time.perf_counter()
+        single_ms = C.card_single(LM_MESH_LAYERS, LM_MESH_STEPS, work,
+                                  dev.type)
+        # (b)'s CPU references run beside the world (the ranks are
+        # processes of their own)
+        tcfg, _ = C.card_train_inputs(*LM_MESH_TRAIN)
+        pd = init_params(tcfg, 0, torch.float32, dev)
+        ref = {"params": unflatten(pd, [t.cpu() for t in leaves(pd)])}
+        del pd
+        worker = threading.Thread(target=lm_mesh_grads, args=(torch, ref))
+        worker.start()
+        t1 = time.perf_counter()
+        ranks = run_spmd(C.card_lm_world, 4, args=(
+            LM_MESH_LAYERS, LM_MESH_STEPS, work, dev.type, C.CARD_PROMPTS,
+            LM_MESH_TRAIN), device=dev, timeout_s=LM_MESH_TIMEOUT_S)
+        world_s = time.perf_counter() - t1
+        worker.join()
+        r0 = ranks[0]
+        print(f"  select_rules on {dict(zip(*C.CARD_MESH[::-1]))} (H100 "
+              f"figures): prefill {r0['assignment']['prefill']}, decode "
+              f"{r0['assignment']['decode']}; rules {r0['rules']}")
+        worst = C.check_card_lm(ranks, LM_MESH_LAYERS, dev.type, SERVE_REL)
+        for res in ranks:
+            for call, counts in res["counts"].items():
+                paths[f"mesh_lm_{call}_r{res['rank']}"] = counts
+        print(f"  (a) {cfg.name}, {cfg.n_layers} layers, {cfg.n_heads} / "
+              f"{cfg.n_kv_heads} heads ({r0['local_heads'][0]} / "
+              f"{r0['local_heads'][1]} per rank): prompts "
+              f"{list(C.CARD_PROMPTS)} prefilled at batch 1 with K6, then "
+              f"{LM_MESH_STEPS} decode steps over 4 slots; every rank's "
+              f"logits within {worst:.3e} of the single-device f32 run's "
+              f"largest, "
+              f"{max(max(q['dist64'].values()) for q in ranks):.3e} of the "
+              f"float64 run's (the single-device f32 run "
+              f"{max(r0['single64'].values()):.3e}; gate: {SERVE_REL}, or "
+              f"twice the f32 run's distance from float64); K6 "
+              f"{LM_MESH_LAYERS} launches per prefill on every rank, none "
+              f"in decode")
+        dec = [v for k, v in r0["ms"].items() if k.startswith("dec")]
+        sdec = [v for k, v in single_ms.items() if k.startswith("dec")]
+        print(f"      host clock [{tag}]: prefill ms "
+              + ", ".join(f"T={t}: {r0['ms'][f'prefill{i}']:.1f} (one "
+                          f"device {single_ms[f'prefill{i}']:.1f})"
+                          for i, t in enumerate(C.CARD_PROMPTS))
+              + f"; decode step mean {np.mean(dec[1:]):.1f} ms (one device "
+              f"{np.mean(sdec[1:]):.1f}), first {dec[0]:.1f}")
+        # (d)
+        worst = C.check_card_compress(ranks)
+        print(f"  (d) compressed_psum_tree over 4 ranks of "
+              f"{C.CARD_COMPRESS_SHAPE}: every rank within {worst:.3e} of "
+              f"the largest of the CPU's arithmetic (gate 1e-6)")
+        # (b)
+        tr = r0["train"]
+        grads = torch.load(pathlib.Path(work) / "grads.pt")
+        lc, gc_ = ref["cpu"]
+        l64, g64 = ref["f64"]
+        lc, l64 = float(lc), float(l64)
+        e_cpu, e_mesh = leaf_dists(gc_, g64), leaf_dists(grads, g64)
+        gate = max(GRAD_REL, 2 * max(e_cpu))
+        l_gate = max(TRAIN_LOSS_REL, 2 * abs(lc - l64) / abs(l64))
+        check(abs(tr["loss"] - l64) <= l_gate * abs(l64),
+              f"(b) loss {tr['loss']} vs float64 {l64} (CPU {lc})")
+        check(max(e_mesh) <= gate, f"(b) gradients {e_mesh} of each "
+              f"leaf's largest from float64, beyond {gate:.3e} (the CPU's "
+              f"{e_cpu})")
+        check(tr["finite"] and abs(tr["step_loss"] - tr["loss"]) <=
+              1e-6 * abs(tr["loss"]), f"(b) train_step: {tr}")
+        print(f"  (b) train_step at {LM_MESH_TRAIN[0]} layers of full width,"
+              f" seq {LM_MESH_TRAIN[1]} x batch {LM_MESH_TRAIN[2]}, "
+              f"attn_impl xla: loss {tr['loss']} (CPU {lc}, float64 {l64});"
+              f" gradients' worst leaf {max(e_mesh):.3e} of its largest "
+              f"from float64 (the CPU's {max(e_cpu):.3e}, gate "
+              f"{gate:.3e}); AdamW's update finite, parameters "
+              f"{tr['placements']}")
+        print(f"  world of 4 ranks: {world_s:.1f} s wall, spawn and (b) "
+              f"included [{tag}]")
+        # K6 at the shard's shape: each rank's heads of the longest prompt
+        t_ = max(C.CARD_PROMPTS)
+        hq, hk = r0["local_heads"]
+        d = cfg.resolved_head_dim
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(15)
+        q_, k_, v_ = (torch.randn((1, t_, h, d), generator=gen, device=dev)
+                      for h in (hq, hk, hk))
+        hold_k6(torch, F, attn_rpt, {((1, t_, hq, d), (1, t_, hk, d), True):
+                                     (q_, k_, v_, {"scale": d ** -0.5,
+                                                   "causal": True,
+                                                   "window": 0,
+                                                   "softcap": 0.0})},
+                "mesh shard", sub="mesh_shard")
+        # (c)
+        t1 = time.perf_counter()
+        moe = run_spmd(C.card_moe_world, 2, args=(work, dev.type,
+                                                  C.CARD_MOE),
+                       device=dev, timeout_s=LM_MESH_TIMEOUT_S)
+        m0 = C.check_card_moe(moe, MOE_A2A_REL)
+        print(f"  (c) {m0['cfg']} MoE layer through "
+              f"moe_ffn_alltoall on {{model: 2}}: {m0['n_local']} tokens "
+              f"per rank, capacity {m0['c']}, two all-to-alls of "
+              f"{m0['a2a_bytes'] / 1e6:.1f} MB each; within "
+              f"{m0['dist']:.3e} of the single-device moe_ffn's largest "
+              f"(gate {MOE_A2A_REL}); {m0['ms']:.1f} ms host clock on rank "
+              f"0 [{tag}]; world {time.perf_counter() - t1:.1f} s")
+        # (e)
+        out = pathlib.Path(work) / "dryrun"
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "tinyllama-1.1b", "--shape", "decode_32k", "--out", str(out)],
+            capture_output=True, text=True, timeout=300,
+            env={**__import__("os").environ, "PYTHONPATH": str(SRC)})
+        check(proc.returncode == 0, f"(e) dry-run: {proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout)
+        check(rec["n_devices"] == 256 and rec["collective_bytes_per_device"]
+              > 0, f"(e) dry-run record {rec}")
+        counts = {k: v["count"] for k, v in rec["collectives"].items()
+                  if v["count"]}
+        print(f"  (e) dry-run tinyllama-1.1b/decode_32k on a fake group of "
+              f"{rec['n_devices']} ranks: collectives {counts}"
+              f", {rec['flops_per_device']:.4g} flops per device, traced in "
+              f"{rec['trace_s']:.1f} s")
+        print(f"  phase 15 body {time.perf_counter() - t0:.1f} s")
+    finally:  # no process of the phase outlives it
+        stop_spmd()
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3504,6 +3710,15 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_phase(dev, paths)
     print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+    # ---- 15. the LM on a mesh: ShardingPlan(mesh=) over DTensor ----
+    print(f"== lm mesh: TinyLlama-1.1B on {{data: 2, model: 2}} under "
+          f"select_rules, K6 on each rank's heads; a train step; the "
+          f"all-to-all MoE; the compressed all-reduce; a dry-run cell ==")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_mesh_phase(torch, F, dev, paths,
+                  next(r for r in reports if r.name == "flash_attention"))
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
     for r in reports:
         check(not r.on_path or any(c.get(r.name) for c in paths.values()),
               f"kernel {r.name} never launched on a path")

@@ -25,8 +25,9 @@ whose collectives on CUDA tensors pass through the host.
 
 The reference's ``force_host_devices`` (an XLA flag asking for fake CPU
 devices) has no counterpart: the world size of :func:`run_spmd` plays
-its role.  ``make_production_mesh`` belongs to the reference's dry-run
-and is not ported here.
+its role, and the dry-run's 256 or 512 ranks are a ``"fake"`` process
+group in one process (:mod:`repro_torch.launch.dryrun`), over which
+:func:`make_production_mesh` builds the production mesh.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ from ..core.plan import mesh_shape_dict  # re-export: single definition
 from ..kernels.common import resolve_device
 
 __all__ = ["parse_mesh_spec", "mesh_shape_dict", "mesh_fingerprint",
-           "make_mesh", "default_backend", "run_spmd", "stop_spmd"]
+           "make_mesh", "make_production_mesh", "default_backend",
+           "stage_collectives_on_host", "run_spmd", "stop_spmd"]
 
 #: CLI parallelism names -> mesh axis names.  The CLI speaks the
 #: paper's vocabulary (dp/tp/stage); the mesh speaks the reference's
@@ -155,6 +157,8 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     from torch.distributed.device_mesh import init_device_mesh
     mesh = init_device_mesh(dev.type, shape, mesh_dim_names=axis_names,
                             backend_override=override)
+    if dev.type == "cuda" and (backend or dist.get_backend()) == "gloo":
+        stage_collectives_on_host()
     if dist.get_rank() == 0:
         world, gpus = dist.get_world_size(), torch.cuda.device_count()
         local = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
@@ -166,6 +170,58 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     return mesh
 
 
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """16x16 = 256-rank single pod (``data``, ``model``); 2x16x16 =
+    512-rank two-pod mesh (``pod``, ``data``, ``model``), over the
+    current world, which must have that many ranks (the dry-run's fake
+    process group).  ``device``: the mesh's device type, the card unless
+    told otherwise."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not dist.is_initialized() or dist.get_world_size() != \
+            int(torch.tensor(shape).prod()):
+        raise RuntimeError(
+            f"the production mesh {shape} needs a world of "
+            f"{int(torch.tensor(shape).prod())} ranks (the dry-run's fake "
+            f"process group)")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(resolve_device(device).type, shape,
+                            mesh_dim_names=axes)
+
+
+def stage_collectives_on_host() -> None:
+    """Route DTensor's collectives on CUDA tensors through host copies.
+
+    A gloo group takes CUDA tensors through the host in its ``c10d``
+    calls (``dist.all_reduce`` and the like), but the functional
+    collectives DTensor issues (``torch.distributed.
+    _functional_collectives``, and its shard-dimension all-to-all) reach
+    gloo's CUDA path differently and crash the process in the PyTorch
+    the card's machine runs.  Installed once per process by
+    :func:`make_mesh` for a gloo mesh on CUDA (ranks sharing a card):
+    each of those calls gets a host copy of its CUDA operand and its
+    result is copied back, which is what gloo does with a CUDA tensor
+    anyway.  A CPU tensor is passed on as it is."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import _collective_utils, placement_types
+    if getattr(fc, "_staged_on_host", False):
+        return
+
+    def staged(fn):
+        def call(t, *args, **kwargs):
+            if not t.is_cuda:
+                return fn(t, *args, **kwargs)
+            return fn(t.cpu(), *args, **kwargs).to(t.device)
+        return call
+    for name in ("all_gather_tensor", "all_reduce", "reduce_scatter_tensor",
+                 "all_to_all_single", "broadcast"):
+        setattr(fc, name, staged(getattr(fc, name)))
+    for mod in (_collective_utils, placement_types):
+        if hasattr(mod, "shard_dim_alltoall"):
+            mod.shard_dim_alltoall = staged(mod.shard_dim_alltoall)
+    fc._staged_on_host = True
+
+
 # ---------------------------------------------------------------------
 # the SPMD launcher
 # ---------------------------------------------------------------------
@@ -173,6 +229,8 @@ def _worker(rank: int, world: int, init: str, backend: str, device: str,
             timeout_s: float, fn: Callable, args: tuple, queue) -> None:
     """One rank: join the world, run ``fn(*args)``, report to the
     parent (the result, or the traceback), leave the world."""
+    import faulthandler
+    faulthandler.enable()   # a rank that crashes prints where
     try:
         if torch.device(device).type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())

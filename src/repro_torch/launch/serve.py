@@ -40,8 +40,13 @@ Observability: ``--trace PATH`` writes one JSON line per span,
 ``--metrics-dump`` prints the plan server's Prometheus text exposition,
 ``--metrics-json PATH`` writes its stats snapshot.
 
-``--mesh`` and ``--dp-mesh`` (mesh-sharded vision serving) are refused
-until the ROADMAP's slice G2.
+``--mesh SPEC`` (``dp=2``, ``dp=2,tp=2``, ...; ``--dp-mesh N`` is the
+shorthand for ``--mesh dp=N``) serves the vision tower's plans
+mesh-sharded, as the reference's CLI does: the program runs on every
+rank of a world of that many processes (``launch.mesh.run_spmd``; on one
+card the ranks share it over gloo), each rank's plan server compiles
+mesh executables (``PlanServer(mesh=)``), and rank 0 alone prints; the
+``plan cache:`` line counts them (``mesh-sharded``).
 """
 from __future__ import annotations
 
@@ -79,11 +84,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="open-loop Poisson arrival rate in req/s "
                          "(0: all requests queued up front)")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
-                    help="mesh-sharded vision serving: not ported yet "
-                         "(slice G2)")
+                    help="mesh-sharded vision serving: 'dp=2,tp=2' "
+                         "(aliases dp/tp/pp or data/model/stage); the "
+                         "program runs on that many ranks")
     ap.add_argument("--dp-mesh", type=int, default=0,
-                    help="back-compat shorthand for --mesh dp=N: not "
-                         "ported yet (slice G2)")
+                    help="back-compat shorthand for --mesh dp=N")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write request-scoped trace spans as JSONL")
     ap.add_argument("--metrics-dump", action="store_true",
@@ -120,13 +125,10 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> int:
+def _args(argv):
+    """Parse and check ``argv``; returns (args, mesh spec or None)."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.mesh or args.dp_mesh > 1:
-        raise NotImplementedError(
-            "--mesh/--dp-mesh: mesh-sharded serving is not ported yet "
-            "(ROADMAP slice G2)")
     if args.profile and args.vision_every <= 0:
         ap.error("--profile prices the vision plan path; it needs "
                  "--vision-every > 0 to have any effect")
@@ -136,7 +138,46 @@ def main(argv=None) -> int:
     if args.shed and (args.vision_every <= 0 or args.slo_ms <= 0):
         ap.error("--shed needs --vision-every > 0 and --slo-ms > 0 "
                  "(shedding is deadline-aware admission control)")
+    if args.mesh and args.dp_mesh > 1:
+        ap.error("--dp-mesh is the shorthand for --mesh dp=N; pass "
+                 "one or the other")
+    if args.dp_mesh > 1:
+        args.mesh = f"dp={args.dp_mesh}"
+    mesh_spec = None
+    if args.mesh:
+        if args.vision_every <= 0:
+            ap.error("--mesh shards the vision plan path; it needs "
+                     "--vision-every > 0 to have any effect")
+        from .mesh import parse_mesh_spec
+        try:
+            mesh_spec = parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+    return args, mesh_spec
 
+
+def main(argv=None) -> int:
+    args, mesh_spec = _args(argv)
+    if mesh_spec is None:
+        return _serve(args, None)
+    from .mesh import run_spmd
+    n = 1
+    for s in mesh_spec[0]:
+        n *= s
+    # every rank runs the whole program; a rank that raises ends the
+    # world with its traceback
+    run_spmd(_serve_rank, n, args=(argv,), device=args.device,
+             timeout_s=300.0)
+    return 0
+
+
+def _serve_rank(argv):
+    """One rank of a ``--mesh`` run."""
+    args, mesh_spec = _args(argv)
+    return _serve(args, mesh_spec)
+
+
+def _serve(args, mesh_spec) -> int:
     import numpy as np
     import torch
 
@@ -146,7 +187,15 @@ def main(argv=None) -> int:
     from ..runtime import Request, ServeLoop
 
     device = resolve_device(args.device)
-    if args.trace:
+    mesh = None
+    if mesh_spec is not None:
+        from .mesh import make_mesh
+        mesh = make_mesh(*mesh_spec, device)
+    import torch.distributed as dist
+    lead = mesh is None or dist.get_rank() == 0
+    import builtins
+    print = builtins.print if lead else (lambda *a, **k: None)  # rank 0
+    if args.trace and lead:
         from ..obs.trace import configure
         tracer = configure(args.trace, enabled=True)
 
@@ -178,7 +227,7 @@ def main(argv=None) -> int:
         plan_server = PlanServer(
             lambda s: conv_tower(s, depth=2, width=8),
             cost_model,
-            policy=policy,
+            policy=policy, mesh=mesh,
             cache_dir=args.plan_cache_dir, lru_capacity=4,
             fault_injector=injector,
             solve_deadline_s=args.solve_deadline_ms / 1e3
@@ -267,7 +316,7 @@ def main(argv=None) -> int:
                   f" (requeued {s['worker_requeues']})"
                   f" | kernel failures={s['kernel_failures']}"
                   f" compile retries={s['compile_retries']}")
-        if args.metrics_json:
+        if args.metrics_json and lead:
             import json
             with open(args.metrics_json, "w") as fh:
                 json.dump(s, fh, indent=1, default=str)
@@ -283,11 +332,16 @@ def main(argv=None) -> int:
         if scheduler is not None:
             scheduler.close()
         plan_server.close()
-    if args.trace:
+    if args.trace and lead:
         tracer.flush()
         print(f"trace spans written to {args.trace}")
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from .mesh import stop_spmd
+    try:
+        rc = main()
+    finally:
+        stop_spmd()
+    raise SystemExit(rc)

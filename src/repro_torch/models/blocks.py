@@ -24,7 +24,7 @@ import torch
 from .common import attention, attention_defs, ffn, ffn_defs, rms_norm
 from .mamba import mamba_block, mamba_defs, mamba_dims
 from .moe import moe_defs, moe_ffn
-from .sharding import PDef, ShardingPlan, map_defs
+from .sharding import PDef, ShardingPlan, _is_dtensor, map_defs
 
 
 def layer_kinds(cfg) -> List[Dict[str, Any]]:
@@ -123,16 +123,38 @@ def empty_cache(cfg, batch: int, max_seq: int, dtype,
     return cache
 
 
+def _alltoall_fits(cfg, plan: ShardingPlan, x) -> bool:
+    """The reference's condition for the all-to-all MoE: a mesh with a
+    ``model`` axis dividing the expert count and the sequence."""
+    if plan.mesh is None or "model" not in plan.mesh.mesh_dim_names:
+        return False
+    tp = plan.mesh.size(plan.mesh.mesh_dim_names.index("model"))
+    return cfg.n_experts % tp == 0 and x.shape[1] % tp == 0
+
+
+def _assign(dst, src):
+    """``dst.copy_(src)`` in place; on a mesh into ``dst``'s own shard,
+    ``src`` redistributed to ``dst``'s placements first."""
+    if _is_dtensor(dst):
+        src = src.redistribute(dst.device_mesh, dst.placements).to_local()
+        dst = dst.to_local()
+    dst.copy_(src)
+
+
 def apply_superblock(cfg, params, h, *, positions, plan: ShardingPlan,
                      cache=None, cache_index=None, decode: bool = False,
                      attn_impl: str = "xla", chunk: int = 256,
-                     cross_kv=None, drop_free: bool = False):
+                     cross_kv=None, drop_free: bool = False,
+                     moe_impl: str = "gather"):
     """Run one superblock.  Returns (h, new_cache).
 
     With ``decode``, every layer's new state goes into ``cache`` in place.
     Cross-attention (the encoder-decoder family, given ``cross_kv``)
     takes the plain path, as in the reference.  ``drop_free`` gives the
-    MoE FFNs a capacity of at least their token count (``moe_ffn``)."""
+    MoE FFNs a capacity of at least their token count (``moe_ffn``).
+    ``moe_impl="alltoall"`` takes the expert-parallel all-to-all MoE
+    (``moe.moe_ffn_alltoall``) where the reference does: on a mesh with
+    a ``model`` axis that divides the expert count and the sequence."""
     new_cache: Dict[str, Any] = {}
     for i, kind in enumerate(layer_kinds(cfg)):
         p = params[f"layer{i}"]
@@ -155,8 +177,8 @@ def apply_superblock(cfg, params, h, *, positions, plan: ShardingPlan,
                 decode=decode)
             if c is not None:
                 if decode:
-                    c["ssm"].copy_(nssm)
-                    c["conv"].copy_(nconv)
+                    _assign(c["ssm"], nssm)
+                    _assign(c["conv"], nconv)
                 new_cache[f"layer{i}"] = {"ssm": nssm, "conv": nconv}
         if cfg.post_norms:
             mix_out = rms_norm(mix_out, p["post_norm1"], cfg.norm_eps)
@@ -181,6 +203,9 @@ def apply_superblock(cfg, params, h, *, positions, plan: ShardingPlan,
         x = rms_norm(h, p["norm2"], cfg.norm_eps)
         if kind["ffn"] == "dense":
             ff_out = ffn(p["ffn"], x, plan)
+        elif moe_impl == "alltoall" and _alltoall_fits(cfg, plan, x):
+            from .moe import moe_ffn_alltoall
+            ff_out = moe_ffn_alltoall(cfg, p["moe"], x, plan)
         else:
             ff_out = moe_ffn(cfg, p["moe"], x, plan, drop_free=drop_free)
         if cfg.post_norms:

@@ -24,7 +24,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .sharding import PDef, ShardingPlan
+from .sharding import (
+    PDef, ShardingPlan, _bounds, _is_dtensor, as_placed, local_bounds,
+    replicated_like,
+)
 
 NEG_INF = -1e30
 
@@ -58,8 +61,8 @@ def rope(x, positions, theta: float):
     half = d // 2
     freqs = _rope_freqs(half, float(theta), x.device)
     ang = positions[..., None].to(torch.float32) * freqs  # (..., T, half)
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
+    cos = replicated_like(torch.cos(ang)[..., None, :], x)
+    sin = replicated_like(torch.sin(ang)[..., None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -161,6 +164,83 @@ def chunked_causal_attention(q, k, v, *, scale, softcap, chunk: int = 0):
     return torch.cat(outs, dim=1)
 
 
+def _on_shards(fn, q, k, v, *per_row):
+    """``fn(q, k, v, *per_row)``, the attention core, on this rank's
+    shards: a counterpart of ``shard_map`` for attention on a mesh.
+
+    q keeps its batch and heads sharding (every other dimension is
+    gathered); k and v take q's batch sharding, and its heads sharding
+    where the kv heads divide as evenly (then local q head j meets local
+    kv head ``j // g``, as on one device).  Where they do not (kv heads
+    replicated while q's heads are sharded, e.g. 4 heads on 2 kv heads
+    over ``model: 4``), each rank takes the kv heads of its own q heads:
+    a block of them when its q heads split evenly over that block, else
+    one per q head.  ``per_row``: ints or (B,) tensors of one entry per
+    batch row (decode's offsets), cut to this rank's rows.  Plain
+    tensors go straight to ``fn``."""
+    if not _is_dtensor(q):
+        return fn(q, k, v, *per_row)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    qp = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else
+               Replicate() for p in q.placements)
+    tp = int(np.prod([mesh.size(i) for i, p in enumerate(qp)
+                      if p.is_shard(2)]))
+    h, hkv = q.shape[2], k.shape[2]
+    aligned = hkv % tp == 0
+    kp = tuple(p if p.is_shard(0) or (p.is_shard(2) and aligned) else
+               Replicate() for p in qp)
+    # kv replicated where q's heads are sharded: each rank's gradient of
+    # them is a partial sum (its own heads' share)
+    kg = tuple(Partial() if q_.is_shard(2) and not k_.is_shard() else k_
+               for q_, k_ in zip(qp, kp))
+    ql = q.redistribute(mesh, qp).to_local()
+    kl = k.redistribute(mesh, kp).to_local(grad_placements=kg)
+    vl = v.redistribute(mesh, kp).to_local(grad_placements=kg)
+    (b_lo, b_hi), _, (h_lo, h_hi), _ = _bounds(mesh, qp, q.shape)
+    if not aligned:
+        idx = torch.arange(h_lo, h_hi) // (h // hkv)
+        lo, n, hl = int(idx[0]), int(idx[-1] - idx[0]) + 1, h_hi - h_lo
+        if hl % n == 0 and bool(torch.equal(
+                idx, lo + torch.arange(hl) // (hl // n))):
+            kl, vl = kl[:, :, lo:lo + n], vl[:, :, lo:lo + n]
+        else:
+            sel = idx.to(kl.device)
+            kl, vl = kl[:, :, sel], vl[:, :, sel]
+        kl, vl = kl.contiguous(), vl.contiguous()
+    rows = [r[b_lo:b_hi] if torch.is_tensor(r) and r.dim() > 0
+            and r.shape[0] == q.shape[0] > 1 else r for r in per_row]
+    o = fn(ql, kl, vl, *rows)
+    return as_placed(o, mesh, qp, q.shape)
+
+
+def _write_rows(cache, new, idx):
+    """``cache[b, idx[b]] = new[b]`` for every row b, in place: the
+    decode step's new key or value.  cache: (B, S, Hkv, D); new: (B,
+    Hkv, D); idx: (B,) long.  On a mesh each rank writes the rows and
+    positions of its own shard of the cache (a row whose position lies
+    in another rank's share of ``kv_seq`` writes its old value back)."""
+    if not _is_dtensor(cache):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, idx] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    npl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim >= 2
+                else p if p.is_shard(0) else Replicate()
+                for p in cache.placements)
+    nl = new.redistribute(mesh, npl).to_local()
+    cl = cache.to_local()
+    (b_lo, b_hi), (s_lo, s_hi), _, _ = local_bounds(cache)
+    il = (idx[b_lo:b_hi] if idx.shape[0] > 1 else
+          idx.expand(b_hi - b_lo)).to(cl.device) - s_lo
+    inside = (il >= 0) & (il < s_hi - s_lo)
+    il = il.clamp(0, max(s_hi - s_lo - 1, 0))
+    rows = torch.arange(b_hi - b_lo, device=cl.device)
+    cl[rows, il] = torch.where(inside[:, None, None], nl.to(cl.dtype),
+                               cl[rows, il])
+
+
 def attention(cfg, p, x, *, positions, plan: ShardingPlan,
               causal: bool = True, window: int = 0,
               kv_cache: Optional[Tuple] = None,
@@ -199,9 +279,8 @@ def attention(cfg, p, x, *, positions, plan: ShardingPlan,
             # decode: write each row's new kv at its own index
             idx = cache_index.reshape(-1).to(torch.long).expand(
                 ck.shape[0])
-            rows = torch.arange(ck.shape[0], device=ck.device)
-            ck[rows, idx] = k[:, 0].to(ck.dtype)
-            cv[rows, idx] = v[:, 0].to(cv.dtype)
+            _write_rows(ck, k[:, 0], idx)
+            _write_rows(cv, v[:, 0], idx)
             k, v = ck, cv
             kv_valid = idx + 1
             q_offset = idx
@@ -214,17 +293,19 @@ def attention(cfg, p, x, *, positions, plan: ShardingPlan,
     if attn_impl == "flash" and cache_index is None:
         from ..kernels.flash_attention import flash_attention
         # sequence-major, as the projections leave q, k and v
-        o = flash_attention(q, k, v, scale=scale, causal=causal,
-                            window=window, softcap=cfg.attn_softcap,
-                            layout="LHD")
+        o = _on_shards(functools.partial(
+            flash_attention, scale=scale, causal=causal, window=window,
+            softcap=cfg.attn_softcap, layout="LHD"), q, k, v)
     elif (attn_impl == "xla_chunked" and cache_index is None and causal
           and window == 0 and xk is None and q.shape[1] >= 1024):
-        o = chunked_causal_attention(q, k, v, scale=scale,
-                                     softcap=cfg.attn_softcap)
+        o = _on_shards(functools.partial(
+            chunked_causal_attention, scale=scale,
+            softcap=cfg.attn_softcap), q, k, v)
     else:
-        o = dot_attention(q, k, v, scale=scale, causal=causal,
-                          window=window, softcap=cfg.attn_softcap,
-                          q_offset=q_offset, kv_valid=kv_valid)
+        o = _on_shards(lambda q_, k_, v_, off, valid: dot_attention(
+            q_, k_, v_, scale=scale, causal=causal, window=window,
+            softcap=cfg.attn_softcap, q_offset=off, kv_valid=valid),
+            q, k, v, q_offset, kv_valid)
     o = plan.constrain(o, "batch", "seq", "heads", "head_dim")
     out = torch.einsum("bthk,hkd->btd", o, p["wo"])
     return plan.constrain(out, "batch", "seq", "d_model"), new_cache

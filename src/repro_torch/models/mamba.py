@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .sharding import PDef, ShardingPlan
+from .sharding import PDef, ShardingPlan, replicated_like
 
 __all__ = ["mamba_dims", "mamba_defs", "ssd_chunked", "mamba_block"]
 
@@ -111,13 +111,15 @@ def ssd_chunked(xh, dt, a_neg, B_, C_, *, chunk: int, init_state=None):
     Bc = B_.reshape(b, nc, q, n).float()
     Cc = C_.reshape(b, nc, q, n).float()
     cum = torch.cumsum(lc, dim=2)                        # (B, nc, Q, H)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                device=xh.device))[None, :, :, None]
-    strict = torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                   device=xh.device), -1)[None, :, :, None]
+    tri = replicated_like(torch.tril(torch.ones(
+        (q, q), dtype=torch.bool, device=xh.device))[None, :, :, None], xh)
+    strict = replicated_like(torch.tril(torch.ones(
+        (q, q), dtype=torch.bool, device=xh.device), -1)[None, :, :, None],
+        xh)
 
-    state = init_state if init_state is not None else \
-        torch.zeros((b, h, n, p_), dtype=torch.float32, device=xh.device)
+    state = init_state if init_state is not None else replicated_like(
+        torch.zeros((b, h, n, p_), dtype=torch.float32, device=xh.device),
+        xh)
     ys = []
     for ci in range(nc):
         cumi = cum[:, ci]                                # (B, Q, H)

@@ -30,13 +30,15 @@ from .blocks import (
 )
 from .common import attention, ffn, rms_norm
 from .sharding import (
-    PDef, Rules, ShardingPlan, init_from_defs, map_defs, pspecs_from_defs,
+    PDef, Rules, ShardingPlan, _is_dtensor, as_placed, init_from_defs,
+    local_bounds, replicated_like,
+    map_defs, pspecs_from_defs, shapestructs_from_defs,
 )
 
 __all__ = ["ModelRuntime", "param_defs", "init_params", "param_pspecs",
            "param_count", "active_param_count", "params_from_numpy",
-           "forward_train", "loss_fn", "prefill", "decode_step",
-           "init_cache", "encode"]
+           "param_shapestructs", "forward_train", "loss_fn", "prefill",
+           "decode_step", "init_cache", "cache_axes", "encode"]
 
 
 @dataclass(frozen=True)
@@ -53,15 +55,18 @@ class ModelRuntime:
     head; the reference's ``dots_with_no_batch_dims_saveable``).  The
     encoder's layers take "full" under either policy, as the
     reference's do.  Remat changes what autograd keeps, not what is
-    computed.  ``chunk`` is the SSD chunk size.  The reference's
-    ``moe_impl`` comes with the expert-parallel route on a mesh (slice
-    G2); its ``unroll`` and ``unroll_chunks`` have no counterpart: the
-    port's loops over the superblocks and the SSD chunks are Python
-    loops, so there is nothing to unroll."""
+    computed.  ``chunk`` is the SSD chunk size.  ``moe_impl`` picks the
+    MoE route: "gather" (the sort-based dispatch of ``moe.moe_ffn``) or
+    "alltoall" (the expert-parallel ``moe.moe_ffn_alltoall``, taken on a
+    mesh whose ``model`` axis divides the experts and the sequence, as in
+    the reference).  The reference's ``unroll`` and ``unroll_chunks``
+    have no counterpart: the port's loops over the superblocks and the
+    SSD chunks are Python loops, so there is nothing to unroll."""
     attn_impl: str = "xla"        # "xla" | "xla_chunked" | "flash"
     remat: bool = False           # activation checkpointing per block
     remat_policy: str = "full"    # "full" | "dots" (save matmul outputs)
     chunk: int = 256              # SSD chunk size
+    moe_impl: str = "gather"      # "gather" | "alltoall" (expert parallel)
 
 
 # ----------------------------------------------------------------------
@@ -87,12 +92,15 @@ def param_defs(cfg) -> Dict[str, Any]:
     return defs
 
 
-def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
+def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None,
+                plan: Optional[ShardingPlan] = None):
     """Parameters drawn from the reference's distributions by a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (the card by
-    default).  Not the reference's values: carry those across with
-    :func:`params_from_numpy`."""
-    return init_from_defs(param_defs(cfg), seed, dtype, device)
+    default); with a mesh ``plan``, the same values as DTensors placed
+    by the plan's rules (each rank keeps its shards).  Not the
+    reference's values: carry those across with
+    :func:`params_from_numpy` (and ``sharding.place_params``)."""
+    return init_from_defs(param_defs(cfg), seed, dtype, device, plan)
 
 
 def params_from_numpy(tree, device=None):
@@ -110,6 +118,12 @@ def params_from_numpy(tree, device=None):
 
 def param_pspecs(cfg, rules: Rules):
     return pspecs_from_defs(param_defs(cfg), rules)
+
+
+def param_shapestructs(cfg, dtype=torch.bfloat16):
+    """The parameter tree as meta tensors (shapes and dtype, no
+    storage): the reference's ``ShapeDtypeStruct`` tree."""
+    return shapestructs_from_defs(param_defs(cfg), dtype)
 
 
 def _leaves(defs):
@@ -135,8 +149,43 @@ def active_param_count(cfg) -> int:
 
 
 # ----------------------------------------------------------------------
+def _lookup(table, tokens):
+    """``table[tokens]``.  On a mesh, from each rank's own shard of the
+    table (Megatron's vocab-parallel lookup): the rows of a vocab shard
+    are looked up locally (zero for a token another rank holds) and the
+    result is a partial sum over the vocab's mesh dimensions; a sharded
+    ``d_model`` stays sharded.  The table is never gathered."""
+    if not _is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tokens = replicated_like(tokens, table)
+    tab = tuple(p if isinstance(p, Shard) else Replicate()
+                for p in table.placements)
+    table = table.redistribute(mesh, tab)
+    tpl = tuple(Replicate() if isinstance(t, Shard) else p
+                for t, p in zip(tab, tokens.placements))
+    tl = tokens.redistribute(mesh, tpl).to_local()
+    lo, hi = local_bounds(table)[0]
+    idx = tl - lo
+    inside = (idx >= 0) & (idx < hi - lo)
+    # a rank that looks up only its own tokens holds a partial sum of a
+    # replicated table's gradient
+    grad = tuple(Partial() if isinstance(p, Shard) and not t.is_shard()
+                 else t for t, p in zip(tab, tpl))
+    rows = table.to_local(grad_placements=grad)[
+        idx.clamp(0, max(hi - lo - 1, 0))]
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    out = tuple(Partial() if t.is_shard(0) else
+                Shard(tokens.dim()) if t.is_shard(1) else p
+                for t, p in zip(tab, tpl))
+    return as_placed(rows, mesh, out, tuple(tokens.shape) + (
+        table.shape[1],))
+
+
 def _embed(cfg, params, tokens, plan: ShardingPlan):
-    h = params["embed"][tokens.long()]
+    h = _lookup(params["embed"], tokens.long())
     if cfg.post_norms:  # gemma2 embedding scaling, rounded to h's dtype
         # (a host scalar: no copy to the device)
         h = h * torch.tensor(np.sqrt(cfg.d_model), dtype=h.dtype)
@@ -179,7 +228,8 @@ def _run_blocks(cfg, blocks_params, h, *, positions, plan, rt: ModelRuntime,
         return apply_superblock(
             cfg, p, x, positions=positions, plan=plan, cache=c,
             cache_index=cache_index, decode=decode, attn_impl=rt.attn_impl,
-            chunk=rt.chunk, cross_kv=cross_kv, drop_free=drop_free)
+            chunk=rt.chunk, cross_kv=cross_kv, drop_free=drop_free,
+            moe_impl=rt.moe_impl)
     per_cache = _unbind(cache) if cache is not None else \
         [None] * n_super(cfg)
     caches = []
@@ -267,14 +317,39 @@ def forward_train(cfg, params, batch, plan: ShardingPlan,
     """Full forward -> logits over the label positions (the text's, for
     a VLM), differentiable (``attn_impl`` "xla" or "xla_chunked" under
     autograd)."""
-    h, positions, cross_kv, off = _prepare_inputs(cfg, params, batch,
-                                                  plan, rt)
-    h, _ = _run_blocks(cfg, params["blocks"], h, positions=positions,
-                       plan=plan, rt=rt, cross_kv=cross_kv)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    if off:
-        h = h[:, off:, :]   # VLM: logits over text positions only
-    return _head(cfg, params, h, plan)
+    with plan.region():
+        h, positions, cross_kv, off = _prepare_inputs(cfg, params, batch,
+                                                      plan, rt)
+        h, _ = _run_blocks(cfg, params["blocks"], h, positions=positions,
+                           plan=plan, rt=rt, cross_kv=cross_kv)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if off:
+            h = h[:, off:, :]   # VLM: logits over text positions only
+        return _head(cfg, params, h, plan)
+
+
+def _gold(logits, labels):
+    """``logits[..., labels]``.  On a mesh each rank gathers from its own
+    vocab shard (zero where the label lies in another's) and the result
+    is a partial sum over the vocab's mesh dimensions: the logits are
+    never gathered."""
+    if not _is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, v = logits.device_mesh, logits.dim() - 1
+    pl = tuple(p if isinstance(p, Shard) else Replicate()
+               for p in logits.placements)
+    logits = logits.redistribute(mesh, pl)
+    lo, hi = local_bounds(logits)[v]
+    lpl = tuple(Replicate() if p.is_shard(v) else p for p in pl)
+    il = labels.redistribute(mesh, lpl).to_local()
+    inside = (il >= lo) & (il < hi)
+    g = torch.gather(logits.to_local(), -1, (il - lo).clamp(
+        0, max(hi - lo - 1, 0))[..., None])[..., 0]
+    g = torch.where(inside, g, torch.zeros((), dtype=g.dtype,
+                                           device=g.device))
+    return as_placed(g, mesh, tuple(Partial() if p.is_shard(v) else p
+                                    for p in pl), labels.shape)
 
 
 def loss_fn(cfg, params, batch, plan: ShardingPlan,
@@ -282,27 +357,74 @@ def loss_fn(cfg, params, batch, plan: ShardingPlan,
     """Mean next-token cross-entropy over the labels >= 0 (f32): the
     reference's ``logsumexp - gold``, masked, over ``max(count, 1)``."""
     logits = forward_train(cfg, params, batch, plan, rt)
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    # a masked label (< 0) gathers column 0, which the mask zeroes
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    nll = (logz - gold) * mask
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    with plan.region():
+        labels = batch["labels"].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        # a masked label (< 0) gathers column 0, which the mask zeroes
+        gold = _gold(logits, labels.clamp(min=0))
+        mask = (labels >= 0).float()
+        nll = (logz - gold) * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 # ----------------------------------------------------------------------
+def cache_axes(name: str):
+    """The logical axes of a stacked cache leaf (the reference's
+    ``launch.inputs`` cache axes): k/v (L, B, S, Hkv, hd), the SSM
+    state (L, B, H, N, P), the conv window (L, B, K-1, C)."""
+    if name in ("k", "v"):
+        return ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    if name == "ssm":
+        return ("layers", "batch", "ssm_heads", None, None)
+    return ("layers", "batch", None, None)
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device=None):
+               device=None, plan: Optional[ShardingPlan] = None):
     """Stacked decode cache: every leaf gets the n_super leading axis.
-    On ``device`` (the card by default)."""
+    On ``device`` (the card by default); with a mesh ``plan``, DTensors
+    placed by :func:`cache_axes` (each rank allocates its shard)."""
     dev = resolve_device(device)
+    plan = plan or ShardingPlan()
     one = empty_cache(cfg, batch, max_seq, dtype, device="meta")
     n = n_super(cfg)
-    return {lk: {name: torch.zeros((n,) + t.shape, dtype=t.dtype,
-                                   device=dev)
+    return {lk: {name: plan.zeros((n,) + t.shape, cache_axes(name),
+                                  t.dtype, dev)
                  for name, t in leaf.items()}
             for lk, leaf in one.items()}
+
+
+def _write_prefix(dst, i: int, new):
+    """``dst[i, :, :len] = new`` along every dimension (the prompt's
+    k/v at the head of the cache's ``kv_seq``; the SSM states whole).
+    On a mesh each rank writes its own shard of ``dst``: ``new`` keeps
+    ``dst``'s sharding where it spans the whole dimension and is
+    gathered where it covers only a prefix of it."""
+    if not _is_dtensor(dst):
+        dst[(i,) + tuple(slice(0, n) for n in new.shape)] = new.to(
+            dst.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim >= 1
+               and new.shape[p.dim - 1] == dst.shape[p.dim] else
+               Replicate() for p in dst.placements)
+    nl = new.redistribute(mesh, pl).to_local()
+    (l_lo, l_hi), *rest = local_bounds(dst)
+    if not l_lo <= i < l_hi:
+        return
+    dsl, nsl = [i - l_lo], []
+    for (lo, hi), n, p_shard in zip(rest, new.shape,
+                                    (any(p.is_shard(d - 1) for p in pl)
+                                     for d in range(1, dst.dim()))):
+        if p_shard or (lo, hi) == (0, n):
+            dsl.append(slice(0, hi - lo))
+            nsl.append(slice(None))
+        else:   # new covers [0, n) of a dimension dst shards
+            m = max(min(hi, n) - lo, 0)
+            dsl.append(slice(0, m))
+            nsl.append(slice(lo, lo + m))
+    dst.to_local()[tuple(dsl)] = nl[tuple(nsl)].to(dst.dtype)
 
 
 def prefill(cfg, params, batch, plan: ShardingPlan,
@@ -313,22 +435,23 @@ def prefill(cfg, params, batch, plan: ShardingPlan,
     zero beyond the prompt, on the parameters' device.  An
     encoder-decoder's decode steps take the encoder's output as
     ``cross_kv`` (:func:`encode`), as in the reference."""
-    h, positions, cross_kv, _ = _prepare_inputs(cfg, params, batch, plan,
-                                                rt)
-    max_seq = max(max_seq or 0, h.shape[1])
-    cache = init_cache(cfg, h.shape[0], max_seq, h.dtype, h.device)
-    h2, caches = _run_blocks(cfg, params["blocks"], h,
-                             positions=positions, plan=plan, rt=rt,
-                             cache=cache, cross_kv=cross_kv)
-    h2 = rms_norm(h2, params["final_norm"], cfg.norm_eps)
-    logits = _head(cfg, params, h2[:, -1:, :], plan)
-    # the prompt's k/v (length t) at the head of the max_seq cache; the
-    # SSM states whole
-    for i, blk in enumerate(caches):
-        for lk, leaf in blk.items():
-            for name, new in leaf.items():
-                cache[lk][name][i, :, :new.shape[1]] = new.to(
-                    cache[lk][name].dtype)
+    with plan.region():
+        h, positions, cross_kv, _ = _prepare_inputs(cfg, params, batch,
+                                                    plan, rt)
+        max_seq = max(max_seq or 0, h.shape[1])
+        cache = init_cache(cfg, h.shape[0], max_seq, h.dtype, h.device,
+                           plan)
+        h2, caches = _run_blocks(cfg, params["blocks"], h,
+                                 positions=positions, plan=plan, rt=rt,
+                                 cache=cache, cross_kv=cross_kv)
+        h2 = rms_norm(h2, params["final_norm"], cfg.norm_eps)
+        logits = _head(cfg, params, h2[:, -1:, :], plan)
+        # the prompt's k/v (length t) at the head of the max_seq cache;
+        # the SSM states whole
+        for i, blk in enumerate(caches):
+            for lk, leaf in blk.items():
+                for name, new in leaf.items():
+                    _write_prefix(cache[lk][name], i, new)
     return logits, cache
 
 
@@ -346,12 +469,13 @@ def decode_step(cfg, params, cache, tokens, pos, plan: ShardingPlan,
     ``drop_free`` raises it to at least B (``moe.moe_ffn``): the serving
     loop's step over independent slots, which the reference decodes one
     at a time and so never drops."""
-    h = _embed(cfg, params, tokens, plan)
-    pos_t = torch.as_tensor(pos, dtype=torch.long,
-                            device=h.device).reshape(-1)
-    h, _ = _run_blocks(cfg, params["blocks"], h,
-                       positions=pos_t[:, None], plan=plan, rt=rt,
-                       cache=cache, cache_index=pos_t, decode=True,
-                       cross_kv=cross_kv, drop_free=drop_free)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _head(cfg, params, h, plan), cache
+    with plan.region():
+        h = _embed(cfg, params, tokens, plan)
+        pos_t = torch.as_tensor(pos, dtype=torch.long,
+                                device=h.device).reshape(-1)
+        h, _ = _run_blocks(cfg, params["blocks"], h,
+                           positions=pos_t[:, None], plan=plan, rt=rt,
+                           cache=cache, cache_index=pos_t, decode=True,
+                           cross_kv=cross_kv, drop_free=drop_free)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return _head(cfg, params, h, plan), cache

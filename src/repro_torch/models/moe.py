@@ -15,9 +15,16 @@ its top-k through ``torch.topk`` (ties may be ordered otherwise than
 ``jax.lax.top_k`` orders them: the chosen set is the same).
 
 Dispatch, the expert FFNs and the combine are framework ops here as in
-the reference: no kernel of the port is on this path.  The reference's
-expert-parallel ``moe_ffn_alltoall`` (``shard_map`` all-to-alls) needs a
-mesh and comes with the ROADMAP's slice G2.
+the reference: no kernel of the port is on this path.
+
+On a mesh (DTensor parameters and activations) :func:`moe_ffn` routes
+the whole batch as the reference's GSPMD program does: the token slab is
+gathered, every rank dispatches it alike, the expert FFNs run on the
+rules' shards of the expert weights (``experts`` or ``d_ff`` on
+``model``) and the combined output takes the batch's sharding again.
+:func:`moe_ffn_alltoall` is the reference's expert-parallel GShard
+schedule: routing on each rank's (batch x seq)-local slab and two
+``all_to_all_single`` calls on the ``model`` group.
 """
 from __future__ import annotations
 
@@ -26,9 +33,10 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .sharding import PDef, ShardingPlan
+from .sharding import PDef, ShardingPlan, _is_dtensor, as_placed
 
-__all__ = ["moe_defs", "capacity", "moe_ffn", "aux_load_balance_loss"]
+__all__ = ["moe_defs", "capacity", "moe_ffn", "moe_ffn_alltoall",
+           "aux_load_balance_loss"]
 
 
 def moe_defs(cfg) -> Dict[str, PDef]:
@@ -94,8 +102,17 @@ def moe_ffn(cfg, p, x, plan: ShardingPlan, *, drop_free: bool = False):
     c = capacity(cfg, n)
     if drop_free:
         c = max(c, n)
-    xf = x.reshape(n, d)
-    buf, meta = _local_dispatch(cfg, p, xf, c)
+    mesh = x.device_mesh if _is_dtensor(x) else None
+    if mesh is not None:
+        # every rank routes the whole (gathered) batch, as GSPMD does
+        from torch.distributed.tensor import Replicate
+        rep = (Replicate(),) * mesh.ndim
+        xf = x.redistribute(mesh, rep).to_local().reshape(n, d)
+        router = p["router"].redistribute(mesh, rep).to_local()
+        buf, meta = _local_dispatch(cfg, {"router": router}, xf, c)
+        buf = as_placed(buf, mesh, rep, buf.shape)
+    else:
+        buf, meta = _local_dispatch(cfg, p, x.reshape(n, d), c)
     buf = plan.constrain(buf, "experts", None, "d_model")
 
     # ---- expert computation (per-expert gated FFN) ----
@@ -105,8 +122,92 @@ def moe_ffn(cfg, p, x, plan: ShardingPlan, *, drop_free: bool = False):
     out_buf = torch.einsum("ecf,efd->ecd", h, p["w2"])
     out_buf = plan.constrain(out_buf, "experts", None, "d_model")
 
-    y = _local_combine(cfg, out_buf.reshape(-1, d), meta, n, d, x.dtype)
-    return plan.constrain(y.reshape(b, t, d), "batch", "seq", "d_model")
+    if mesh is not None:
+        out_flat = out_buf.redistribute(mesh, rep).to_local().reshape(-1, d)
+        y = _local_combine(cfg, out_flat, meta, n, d, x.dtype)
+        y = as_placed(y.reshape(b, t, d), mesh, rep, (b, t, d))
+    else:
+        y = _local_combine(cfg, out_buf.reshape(-1, d), meta, n, d,
+                           x.dtype).reshape(b, t, d)
+    return plan.constrain(y, "batch", "seq", "d_model")
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal chunks over ``group``, and the same
+    exchange of the gradient back (an even all-to-all is its own
+    transpose)."""
+
+    @staticmethod
+    def _exchange(x, group):
+        import torch.distributed as dist
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _AllToAll._exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll._exchange(g, ctx.group), None
+
+
+def moe_ffn_alltoall(cfg, p, x, plan: ShardingPlan):
+    """Expert-parallel MoE with explicit all-to-alls (the reference's
+    ``shard_map`` GShard schedule).
+
+    Routing runs on each rank's (batch x seq)-local slab (batch over the
+    data axes, seq over ``model``) with the capacity of its
+    ``n_local`` tokens; each rank holds ``E / |model|`` experts whole.
+    The only cross-rank traffic is two ``all_to_all_single`` calls on
+    the ``model`` group, of (|model|, e_local * C, d) each (autograd
+    passes through them).  Drops follow the local slab's capacity, so
+    they differ from :func:`moe_ffn`'s.  Requires a mesh with a "model"
+    axis, and seq and the expert count divisible by |model|."""
+    mesh = plan.mesh
+    b, t, d = x.shape
+    e = cfg.n_experts
+    names = tuple(mesh.mesh_dim_names)
+    tp = mesh.size(names.index("model"))
+    e_local = e // tp
+    data_axes = tuple(a for a in ("pod", "data") if a in names)
+    x_pl = plan.placements((data_axes or None, "model", None))
+    rep = plan.placements((None, None))
+    w_pl = plan.placements(("model", None, None))
+    xl = x.redistribute(mesh, x_pl).to_local()
+    n_local = xl.shape[0] * xl.shape[1]
+    c = capacity(cfg, n_local)
+    # per (dest-shard, local-expert) capacity such that E*C splits evenly
+    assert (e * c) % tp == 0
+    # each rank routes its own slab and feeds its experts the tokens of
+    # its data rows only: their gradients are partial sums there
+    from torch.distributed.tensor import Partial
+    router = p["router"].redistribute(mesh, rep).to_local(
+        grad_placements=(Partial(),) * mesh.ndim)
+    w_grad = tuple(q if q.is_shard() else Partial() for q in w_pl)
+    w1, w3, w2 = (p[k].redistribute(mesh, w_pl).to_local(
+        grad_placements=w_grad) for k in ("w1", "w3", "w2"))
+    group = mesh.get_group("model")
+
+    def exchange(t_):
+        return _AllToAll.apply(t_, group)
+
+    xf = xl.reshape(-1, d)
+    buf, meta = _local_dispatch(cfg, {"router": router}, xf, c)
+    # group by destination shard and exchange
+    buf = exchange(buf.reshape(tp, e_local * c, d))
+    # buf: (tp source shards, e_local * c, d)
+    buf = buf.reshape(tp, e_local, c, d)
+    h = torch.einsum("secd,edf->secf", buf, w1)
+    h = F.silu(h) * torch.einsum("secd,edf->secf", buf, w3)
+    out = torch.einsum("secf,efd->secd", h, w2)      # (tp, e_local, c, d)
+    out = exchange(out.reshape(tp, e_local * c, d))
+    y = _local_combine(cfg, out.reshape(e * c, d), meta, xf.shape[0], d,
+                       xl.dtype)
+    return as_placed(y.reshape(xl.shape), mesh, x_pl, x.shape)
 
 
 def aux_load_balance_loss(cfg, logits):

@@ -1,7 +1,7 @@
 """Optimizers and gradient compression of the port (``optim/``), over
-nested dicts of tensors.  ``compressed_psum_tree`` (a collective over a
-mesh axis) comes with the ROADMAP's slice G2."""
-from .compression import dequantize_int8, quantize_int8
+nested dicts of tensors; ``compressed_psum_tree`` is the quantised
+all-reduce over a process group."""
+from .compression import compressed_psum_tree, dequantize_int8, quantize_int8
 from .optimizers import (
     Optimizer, adafactor, adamw, clip_by_global_norm, for_config,
     global_norm, warmup_cosine,
@@ -10,4 +10,5 @@ from .optimizers import (
 __all__ = [
     "Optimizer", "adamw", "adafactor", "clip_by_global_norm", "for_config",
     "global_norm", "warmup_cosine", "quantize_int8", "dequantize_int8",
+    "compressed_psum_tree",
 ]

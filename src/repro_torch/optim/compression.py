@@ -2,9 +2,10 @@
 reference's ``optim/compression.py``).
 
 int8 quantisation with a per-tensor scale, optionally with stochastic
-rounding: the pseudo-gradient exchanged between pods shrinks 4x.  The
-reference's ``compressed_psum_tree`` is an all-reduce over a named mesh
-axis; it comes with the ROADMAP's slice G2 (the LM mesh).
+rounding: the pseudo-gradient exchanged between pods shrinks 4x.
+:func:`compressed_psum_tree` is the reference's quantised all-reduce
+over a named mesh axis, here over a ``torch.distributed`` process group
+(``mesh.get_group("pod")``).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["quantize_int8", "dequantize_int8"]
+__all__ = ["quantize_int8", "dequantize_int8", "compressed_psum_tree"]
 
 
 def quantize_int8(x: torch.Tensor, key: Optional[torch.Generator] = None):
@@ -34,3 +35,42 @@ def quantize_int8(x: torch.Tensor, key: Optional[torch.Generator] = None):
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def compressed_psum_tree(tree, group=None,
+                         generator: Optional[torch.Generator] = None):
+    """Quantised all-reduce of a nested dict of tensors over ``group``
+    (a process group; the default one if None): returns the mean over
+    its ranks, in each leaf's dtype.
+
+    A shared scale is agreed first with a scalar ``all_reduce(MAX)`` of
+    each leaf's largest magnitude, so the int8 payload (the only large
+    message) dequantises exactly: it is summed as int32 with
+    ``all_reduce(SUM)`` (no overflow below 2^23 participants).
+    ``generator`` (a ``torch.Generator`` on the leaves' device, the
+    reference's key) adds uniform noise in [-0.5, 0.5) before rounding:
+    stochastic rounding, unbiased.  Rounding is half to even, as the
+    reference's ``jnp.round``."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+
+    def one(leaf):
+        x32 = leaf.float()
+        m = torch.max(torch.abs(x32)).reshape(1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        scale = torch.clamp(m[0], min=1e-12) / 127.0
+        scaled = x32 / scale
+        if generator is not None:  # stochastic rounding: unbiased
+            scaled = scaled + (torch.rand(
+                leaf.shape, generator=generator, dtype=torch.float32,
+                device=leaf.device) - 0.5)
+        acc = torch.clamp(torch.round(scaled), -127, 127).to(
+            torch.int8).to(torch.int32)
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+        return (acc.float() * scale / n).to(leaf.dtype)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in node}
+        return one(node)
+    return walk(tree)

@@ -73,7 +73,9 @@ def adamw(lr_fn, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, clip_norm: float = 1.0) -> Optimizer:
     def init(params):
         ps = _leaves(params)
-        zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a DTensor parameter's state is sharded alike
+        zeros = [torch.zeros_like(p, dtype=torch.float32,
+                                  memory_format=torch.contiguous_format)
                  for p in ps]
         return {"m": _unflatten(params, zeros),
                 "v": _unflatten(params, [torch.zeros_like(z)
@@ -109,6 +111,29 @@ def adamw(lr_fn, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
+def _zeros_without(p, dim):
+    """f32 zeros of ``p``'s shape without dimension ``dim`` (all of it
+    for None).  A DTensor ``p`` gives a DTensor whose other dimensions
+    keep ``p``'s sharding (the reference's factored-state specs)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if dim is None:
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
+    dim = dim % p.dim()
+    shape = p.shape[:dim] + p.shape[dim + 1:]
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    local = p.to_local().shape
+    pl = tuple(Replicate() if q.is_shard(dim) else
+               Shard(q.dim - 1) if isinstance(q, Shard) and q.dim > dim
+               else q for q in p.placements)
+    z = torch.zeros(local[:dim] + local[dim + 1:], dtype=torch.float32,
+                    device=p.to_local().device)
+    return DTensor.from_local(z, p.device_mesh, pl, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
 def adafactor(lr_fn, *, eps: float = 1e-30, clip_norm: float = 1.0,
               weight_decay: float = 0.0, min_dim: int = 128) -> Optimizer:
     """Factored second-moment optimizer (Shazeer & Stern 2018): matrices
@@ -118,11 +143,9 @@ def adafactor(lr_fn, *, eps: float = 1e-30, clip_norm: float = 1.0,
             p.shape[-2] >= min_dim
 
     def one(p):
-        f32 = dict(dtype=torch.float32, device=p.device)
         if factored(p):
-            return {"r": torch.zeros(p.shape[:-1], **f32),
-                    "c": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
-        return {"v": torch.zeros(p.shape, **f32)}
+            return {"r": _zeros_without(p, -1), "c": _zeros_without(p, -2)}
+        return {"v": _zeros_without(p, None)}
 
     def init(params):
         ps = _leaves(params)

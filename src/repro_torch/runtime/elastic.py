@@ -7,10 +7,12 @@ Two elasticity axes live here:
 * **Device elasticity** — on a real cluster the coordinator advertises
   the healthy device set; when it changes (node failure, capacity
   grant) the controller rebuilds the mesh + sharding rules for the new
-  shape.  The port's meshes run the conv executables
-  (:mod:`repro_torch.launch.mesh`), but the LM sharding rules they would
-  be rebuilt with are the ROADMAP's slice G2: :meth:`ElasticController.
-  current` raises until then.
+  shape: ``make_mesh(n)`` returns a ``DeviceMesh`` over the ``n`` ranks
+  of the world (:func:`repro_torch.launch.mesh.make_mesh`), and the plan
+  shards the LM over it (:class:`~repro_torch.models.sharding.
+  ShardingPlan`).  The device count is the default process group's
+  world size (1 without one), where the reference counts
+  ``jax.devices()``.
 
 * **Worker elasticity** — the serving side: the continuous-batching
   scheduler (:mod:`repro_torch.serving.scheduler`) asks
@@ -72,9 +74,22 @@ class ElasticController:
     # -----------------------------------------------------------------
     def current(self) -> Tuple[object, ShardingPlan, bool]:
         """Returns (mesh, plan, changed)."""
-        raise NotImplementedError(
-            "ElasticController.current() re-meshes the training path; "
-            "LM meshes are not ported yet: ROADMAP slice G2")
+        if self.make_mesh is None or self.make_rules is None:
+            raise RuntimeError(
+                "ElasticController.current() needs make_mesh/make_rules "
+                "(this controller was built for worker elasticity only)")
+        import torch.distributed as dist
+
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        changed = self._last_n is not None and n != self._last_n
+        if changed:
+            self.generation += 1
+        self._last_n = n
+        mesh = self.make_mesh(n)
+        names = tuple(mesh.mesh_dim_names)
+        shape = {a: int(s) for a, s in zip(names, mesh.mesh.shape)}
+        rules = self.make_rules(shape).restrict(names)
+        return mesh, ShardingPlan(mesh=mesh, rules=rules), changed
 
     # -----------------------------------------------------------------
     # worker elasticity (serving path)

@@ -92,13 +92,18 @@ def loss_and_grads(cfg, plan: ShardingPlan, rt: ModelRuntime, params,
     """``loss_fn`` and its gradients, in true f32: (the loss on the
     device, the gradients in ``params``' structure).  A parameter the loss
     does not reach gets a zero gradient, as ``jax.grad`` gives it.
-    ``params`` are left as they were."""
+    ``params`` are left as they were.  On a mesh (DTensor parameters)
+    the backward pass runs in ``plan.region()`` too, and each gradient
+    takes its parameter's placements (a partial sum over the data axes
+    is all-reduced: the data-parallel gradient reduction)."""
     with true_f32():
         leaves = [p.detach().requires_grad_() for p in _leaves(params)]
-        with torch.enable_grad():
+        with torch.enable_grad(), plan.region():
             loss = loss_fn(cfg, _unflatten(params, leaves), batch, plan, rt)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else
+             g.redistribute(p.device_mesh, p.placements)
+             if hasattr(g, "redistribute") else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), _unflatten(params, grads)
 

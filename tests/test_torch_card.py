@@ -1372,3 +1372,31 @@ class TestMesh:
                          device="cuda", timeout_s=120.0)
         for r in ranks:
             C.check_serve(r, 1e-3)
+
+
+@pytest.mark.gpu
+class TestMeshLM:
+    """The LM on a mesh on the card (slice G2): ranks sharing ``cuda:0``
+    over gloo, the cases and gates of ``tests/_torch_mesh_lm_cases.py``,
+    which ``chip_smoke.py``'s phase 15 runs at full depth: (a)
+    TinyLlama at full width and 2 layers on {data: 2, model: 2} with K6
+    on each rank's heads against the single-device run, with (d) the
+    compressed all-reduce in the same world; (c) a Jamba-v0.1 MoE layer
+    at full width through the all-to-all schedule on {model: 2}."""
+
+    def test_tinyllama_mesh_matches_one_device(self, cuda, tmp_path):
+        import _torch_mesh_lm_cases as C
+        from repro_torch.launch.mesh import run_spmd
+        C.card_single(2, 4, str(tmp_path), "cuda")
+        ranks = run_spmd(C.card_lm_world, 4,
+                         args=(2, 4, str(tmp_path), "cuda"), device="cuda",
+                         timeout_s=300.0)
+        C.check_card_lm(ranks, 2, "cuda", C.REL)
+        C.check_card_compress(ranks)
+
+    def test_alltoall_moe_matches_one_device(self, cuda, tmp_path):
+        import _torch_mesh_lm_cases as C
+        from repro_torch.launch.mesh import run_spmd
+        res = run_spmd(C.card_moe_world, 2, args=(str(tmp_path), "cuda"),
+                       device="cuda", timeout_s=300.0)
+        C.check_card_moe(res, 1e-5)

@@ -115,7 +115,10 @@ def test_fresh_import_loads_no_jax_and_no_reference():
                 "repro_torch.checkpoint.checkpointer",
                 "repro_torch.runtime.train_loop",
                 "repro_torch.launch.train", "repro_torch.launch.mesh",
-                "repro_torch.runtime.pipeline_parallel"}
+                "repro_torch.runtime.pipeline_parallel",
+                "repro_torch.core.sharding_select",
+                "repro_torch.launch.dryrun", "repro_torch.launch.inputs",
+                "repro_torch.launch.run_all"}
     assert expected <= set(rep["modules"])
 
 
@@ -125,7 +128,8 @@ def test_no_import_statement_names_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
         ROOT / "examples" / "serve_lm_torch.py",
-        ROOT / "examples" / "train_lm_torch.py"]
+        ROOT / "examples" / "train_lm_torch.py",
+        ROOT / "examples" / "select_sharding_torch.py"]
     hits = [f"{f}:{m.group(0)}" for f in files
             for m in pat.finditer(f.read_text())]
     assert hits == []
@@ -210,36 +214,78 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
     assert train_cli.main(argv + ["--device", "cpu"]) == 0
 
 
-def test_mesh_executables_are_not_ported_yet():
-    """The conv mesh executables are ported (slice G1): a mesh plan is
-    validated as the reference validates it, here a single image that
-    cannot be sharded.  The LM mesh (``ShardingPlan(mesh=)``) is slice
-    G2's and still refused."""
+class _StandInMesh:
+    """A mesh's names and sizes without a world (``DeviceMesh``'s
+    interface as ``ShardingPlan`` and ``ElasticController`` read it)."""
+
+    def __init__(self, shape, names):
+        self.mesh = torch.zeros(shape)
+        self.mesh_dim_names = names
+
+    def size(self, i):
+        return self.mesh.shape[i]
+
+
+def test_mesh_plans_are_validated_and_lm_plans_take_a_mesh():
+    """The conv mesh executables validate a mesh plan as the reference
+    does, here a single image that cannot be sharded (slice G1); the LM
+    plan takes a named mesh and resolves the rules' specs to DTensor
+    placements (slice G2), and refuses anything else."""
+    from torch.distributed.tensor import Replicate, Shard
+
     from repro_torch.convnets import alexnet
     from repro_torch.core.costs import AnalyticCostModel
     from repro_torch.core.plan import compile_plan
     from repro_torch.core.selection import select_sum2d
-    from repro_torch.models import ShardingPlan
+    from repro_torch.models import MEGATRON_RULES, ShardingPlan
     net = alexnet(0.3)
     sel = select_sum2d(net, AnalyticCostModel())
     with pytest.raises(ValueError, match="batch >= 2"):
         compile_plan(sel, net.init_params(0), batch=1, mesh=object(),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="slice G2"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ShardingPlan(mesh=object())
+    plan = ShardingPlan(mesh=_StandInMesh((2, 4), ("data", "model")),
+                        rules=MEGATRON_RULES.restrict(("data", "model")))
+    spec = plan.rules.spec(("batch", "seq", "heads", "head_dim"))
+    assert plan.placements(spec) == (Shard(0), Shard(2))
+    # a dimension its mesh axes do not divide stays replicated
+    assert plan.placements(spec, (8, 16, 6, 64)) == (Shard(0),
+                                                     Replicate())
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "dp=2"], ["--dp-mesh", "2"]])
-def test_serve_meshes_are_not_ported_yet(flag):
+def test_serve_meshes_run_on_every_rank(flag):
+    """``--mesh``/``--dp-mesh`` run the CLI on a world of that many ranks
+    (CPU processes here) and keep the reference's argument errors."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="slice G"):
-        serve.main(["--device", "cpu", "--vision-every", "2", *flag])
+    assert serve.main(["--device", "cpu", "--vision-every", "2",
+                       "--requests", "2", "--max-new", "1", *flag]) == 0
+    with pytest.raises(SystemExit):   # a mesh shards the vision path only
+        serve.main(["--device", "cpu", *flag])
+    with pytest.raises(SystemExit):   # one or the other
+        serve.main(["--device", "cpu", "--vision-every", "2", "--mesh",
+                    "dp=2", "--dp-mesh", "2"])
 
 
-def test_elastic_remesh_is_not_ported_yet():
+def test_elastic_remesh_counts_the_world():
+    """Without a process group the world is one rank; ``current()``
+    builds the mesh and plan for it, and changes nothing on a second
+    call.  A controller without mesh factories refuses, as the
+    reference's does."""
+    from repro_torch.models import MEGATRON_RULES
     from repro_torch.runtime import ElasticController
-    ec = ElasticController(make_mesh=lambda n: None,
-                           make_rules=lambda shape: None)
-    with pytest.raises(NotImplementedError, match="slice G"):
-        ec.current()
+    seen = []
+
+    def mk(n):
+        seen.append(n)
+        return _StandInMesh((n, 1), ("data", "model"))
+    ec = ElasticController(make_mesh=mk,
+                           make_rules=lambda shape: MEGATRON_RULES)
+    mesh, plan, changed = ec.current()
+    assert seen == [1] and plan.mesh is mesh and not changed
+    assert plan.rules.get("batch") == "data"
+    assert ec.current()[2] is False and ec.generation == 0
+    with pytest.raises(RuntimeError, match="make_mesh"):
+        ElasticController().current()
     assert ec.desired_workers(queued=10, inflight=0) == 2

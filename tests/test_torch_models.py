@@ -430,9 +430,25 @@ def test_vlm_label_offset():
     assert cache["layer0"]["k"].shape[2] == cfg.n_patches + 10
 
 
-def test_mesh_plans_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="slice G"):
+def test_mesh_plans_resolve_to_placements():
+    """A plan without a mesh keeps ``constrain`` the identity; with a
+    named mesh it resolves specs to DTensor placements (mesh axes in the
+    mesh's order) and refuses a mesh without names."""
+    from torch.distributed.tensor import Replicate, Shard
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.ShardingPlan(mesh=object())
+
+    class Mesh:
+        mesh_dim_names = ("pod", "data", "model")
+
+        def size(self, i):
+            return (2, 2, 4)[i]
+    mp = T.ShardingPlan(mesh=Mesh())
+    assert mp.placements((("pod", "data"), None, "model")) == \
+        (Shard(0), Shard(0), Shard(2))
+    assert mp.placements((None,)) == (Replicate(),) * 3
+    with pytest.raises(ValueError, match="mesh order"):
+        mp.placements((("data", "pod"),))
     plan = T.ShardingPlan()
     x = torch.ones(2, 3)
     assert plan.constrain(x, "batch", "d_model") is x

@@ -11,8 +11,8 @@ checkout of the repository.  Phases, each of which raises on failure:
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel)
    and print each kernel's registers, shared memory and spills as
    ``nvcc -Xptxas -v`` reports them (the GEMM mainloop's kernels, in
-   every dtype, and every flash-attention instantiation must spill
-   nothing);
+   every dtype, every flash-attention instantiation and every layout
+   transform must spill nothing);
 2. kernels: each hand-written kernel's binding against its plain PyTorch
    version on the card at AlexNet's (and GoogLeNet's 1x1) shapes, at
    batch 1 and 8, with its time, the plain version's, one library
@@ -20,13 +20,15 @@ checkout of the repository.  Phases, each of which raises on failure:
    GEMM (its batch folded into N) and the direct conv the launch
    planner's choice (tile, K splits, blocks) and a second call that must
    give the same bits, in f32 and in bf16 and f16; the layout transforms
-   (K5, bit for bit, in 1- to 8-byte elements, short channel axes
-   included) and flash attention (K6, every masking and layout option,
-   head dims 7 to 320, f32, bf16 and f16, its planner's query tile, KV
-   split and blocks, the same bits on a repeated call) at the
-   calibration sweep's shapes; then every kernel primitive's
-   whole convolution (padding, gathers, transforms, crops and each
-   fused layout) at batch 8 against an f64 ``F.conv2d``;
+   (K5, bit for bit, in 1- to 8-byte elements, short channel axes,
+   ragged and misaligned planes, one tile and 1449 x 1449 HWC planes
+   included, VGG-16's buckets timed cold) and flash attention (K6,
+   every masking and layout option, head dims 7 to 320, f32, bf16 and
+   f16, its planner's query tile, KV split and blocks, the same bits on
+   a repeated call) at the calibration sweep's shapes; then every
+   kernel primitive's whole convolution (padding, gathers, transforms,
+   crops and each fused layout) at batch 8 against an f64
+   ``F.conv2d``;
 3. main path: AlexNet at 227x227 through ``select_pbqp`` under the H100
    cost model with the kernels priced, ``compile_plan`` on the card at
    batch 1 and 8, against the SUM2D plan and the port's CPU path;
@@ -249,6 +251,26 @@ TOL_ATTN = 1e-5
 LAYOUT_SHAPES = [(4, 256, 256), (128, 32, 32), (256, 16, 16), (512, 16, 16),
                  (96, 27, 27), (1, 13, 17), (2, 27, 27), (3, 227, 227),
                  (4, 27, 31), (5, 7, 9), (8, 13, 13)]
+#: the tile route's own cases, (entry's input shape, dtype, take
+#: ``x[1:]``): R * e and S * e not multiples of 16, a base 1575 bytes
+#: past a 16-byte boundary, one 8 KB tile (128 x 64) in uint8, and HWC
+#: planes of 1449 x 1449 (more than 65535 tiles of 32 along R, about
+#: 67 MB each); VGG-16's (64, 256, 256) is timed below
+LAYOUT_TILE_CASES = [
+    ("chw_to_hwc", (27, 13, 17), "uint8", False),
+    ("hwc_to_chw", (13, 17, 27), "uint8", False),
+    ("chw_to_hwc", (27, 13, 17), "bfloat16", False),
+    ("hwc_to_chw", (13, 17, 27), "bfloat16", False),
+    ("chw_to_hwc", (3, 25, 7, 9), "uint8", True),
+    ("hwc_to_chw", (3, 7, 9, 25), "uint8", True),
+    ("chw_to_hwc8", (128, 8, 8), "uint8", False),
+    ("hwc_to_chw", (1449, 1449, 32), "uint8", False),
+    ("hwc8_to_chw", (1449, 1449, 4, 8), "uint8", False),
+]
+#: VGG-16's largest calibration buckets and GoogLeNet's (1024, 16, 16):
+#: K5c and K5d timed cold (HBM feeds each call, not L2), f32
+LAYOUT_COLD_SHAPES = [(64, 256, 256), (128, 128, 128), (256, 64, 64),
+                      (512, 32, 32), (1024, 16, 16)]
 #: phase 7's calibration CLI arguments; the measurement discipline is
 #: the CLI's default (``--reps 3 --min-time 5e-3``)
 CALIB_NET, CALIB_SCALE, CALIB_BATCHES = "alexnet", 1.0, (1, 8)
@@ -317,6 +339,42 @@ def cuda_ms(torch, fn, reps: int = 5, inner: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e) / inner)
     return float(np.median(times))
+
+
+#: bytes of operands a cold timing rotates over: twice the H100's 50 MB L2
+COLD_BYTES = 100e6
+#: repetitions of a lone call (``cuda_ms(..., reps=LONE_REPS, inner=1)``):
+#: one call after the sleep kernel, as a caller that synchronises after
+#: every call (calibration, the tuner) sees it, with no call of its own
+#: before it whose tail it could overlap
+LONE_REPS = 21
+
+
+def cold_copies(x):
+    """Copies of ``x`` enough that they and as many outputs of their size
+    span ``COLD_BYTES``, at least 2."""
+    pair = 2 * x.numel() * x.element_size()
+    return [x.clone() for _ in range(max(2, -(-int(COLD_BYTES) // pair)))]
+
+
+def cold_ms(torch, fn, inputs, reps: int = 5, inner: int = 20) -> float:
+    """``cuda_ms`` with the operands rotated, so that HBM and not L2 feeds
+    each call: call i takes ``inputs[i % len(inputs)]``, and its output
+    lives until that slot comes round again, so the outputs rotate over
+    as many blocks of the caching allocator (``cold_copies`` sizes the
+    list past the L2)."""
+    outs = [None] * len(inputs)
+    turn = [0]
+
+    def call():
+        i = turn[0] % len(inputs)
+        turn[0] += 1
+        outs[i] = fn(inputs[i])
+    for _ in inputs:  # every output block allocated before the timing
+        call()
+    ms = cuda_ms(torch, call, reps, inner)
+    outs.clear()
+    return ms
 
 
 def device_profile(torch, fn, calls: int = 3):
@@ -391,9 +449,16 @@ class KernelReport:
         self.rel_err = max(self.rel_err, err / max(scale, 1e-30))
 
     def time(self, torch, what, kernel, plain, library, flops, nbytes,
-             plan=None):
-        ms, pms, lms = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
-                        cuda_ms(torch, library))
+             plan=None, inputs=None, lone=False):
+        """Warm (``cuda_ms``) where ``inputs`` is None; else cold, each of
+        the three called on ``inputs`` in turn (``cold_ms``).  ``lone``:
+        a lone call's time (``LONE_REPS``), not back-to-back calls'."""
+        kw = dict(reps=LONE_REPS, inner=1) if lone else {}
+
+        def timed(fn):
+            return cuda_ms(torch, fn, **kw) if inputs is None else \
+                cold_ms(torch, fn, inputs, **kw)
+        ms, pms, lms = timed(kernel), timed(plain), timed(library)
         o, b = flops / PEAK_F32, nbytes / HBM_BW
         self.ms += ms
         self.plain_ms += pms
@@ -442,9 +507,10 @@ class KernelReport:
 
 
 #: the sources whose kernels must spill nothing: those on the GEMM
-#: mainloop (``csrc/sgemm_sm90.cuh``) and flash attention's
+#: mainloop (``csrc/sgemm_sm90.cuh``), flash attention's and the layout
+#: transform's
 MAINLOOP_SOURCES = ("matmul.cu", "conv_direct.cu", "winograd_gemm.cu",
-                    "flash_attention.cu")
+                    "flash_attention.cu", "layout_transform.cu")
 
 
 def demangle(names):
@@ -657,9 +723,13 @@ def layout_phase(torch, dev):
     """K5: the four layout-transform entries (one CUDA transpose, with a
     route for a short axis) against their plain versions, bit for bit, at
     the sweep's shapes, a ragged one and short channel axes, single and
-    batched, in 1-, 2-, 4- and 8-byte elements, one launch per call.  Timed at the sweep's
-    shapes: CHW -> HWC at conv1's bucket (C % 8 != 0), CHW -> HWC8 at the
-    others, and each reverse entry at the same shapes."""
+    batched, in 1-, 2-, 4- and 8-byte elements, one launch per call, and
+    at the tile route's own cases (``LAYOUT_TILE_CASES``).  Timed as its
+    callers (calibration, the tuner) run it, a lone call at a time
+    (``LONE_REPS``), warm at the sweep's shapes: CHW -> HWC at conv1's
+    bucket (C % 8 != 0), CHW -> HWC8 at the others, and each reverse entry
+    at the same shapes; K5c and K5d also cold at ``LAYOUT_COLD_SHAPES``
+    (the reports' ``cold`` entry)."""
     from repro_torch.kernels.common import launch_counts, reset_launch_counts
     from repro_torch.kernels.layout_transform import kernel as lk
     from repro_torch.kernels.layout_transform import ops as lo
@@ -671,6 +741,20 @@ def layout_phase(torch, dev):
                                on_path=e in ("chw_to_hwc", "chw_to_hwc8"))
                for e, line in (("chw_to_hwc", 27), ("hwc_to_chw", 43),
                                ("chw_to_hwc8", 77), ("hwc8_to_chw", 94))}
+
+    def hold(e, xx, what):
+        rpt = reports[e]
+        reset_launch_counts()
+        got = getattr(lo, e)(xx)
+        counts = launch_counts()
+        check(counts == {rpt.name: 1}, f"{rpt.name} {what}: launches {counts}")
+        want = getattr(lr, f"{e}_ref")(xx)
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{rpt.name} {what}: {tuple(got.shape)} {got.dtype}")
+        # as bytes: random bits hold NaNs, which compare unequal as floats
+        rpt.compare(got.reshape(-1).view(torch.uint8),
+                    want.reshape(-1).view(torch.uint8), 0, what)
+
     rng = np.random.default_rng(2)
     for c, h, w in LAYOUT_SHAPES:
         x = torch.from_numpy(rng.normal(size=(c, h, w)).astype(
@@ -689,24 +773,50 @@ def layout_phase(torch, dev):
                              (xin.to(torch.bfloat16), "bf16"),
                              ((xin * 40).to(torch.int8), "int8"),
                              (xin.double(), "f64")):
-                reset_launch_counts()
-                got = getattr(lo, e)(xx)
-                counts = launch_counts()
-                check(counts == {rpt.name: 1},
-                      f"{rpt.name} {what}: launches {counts}")
-                rpt.compare(got, getattr(lr, f"{e}_ref")(xx), 0,
-                            f"{(c, h, w)} {what}")
+                hold(e, xx, f"{(c, h, w)} {what}")
             swept = (c, h, w) in LAYOUT_SHAPES[:4]
             if swept and (c % 8 == 0) == ("8" in e):
                 n = xin.numel()
                 rpt.time(torch, f"{tuple(xin.shape)}",
                          lambda: getattr(lk, f"{e}_cuda")(xin),
                          lambda: getattr(lr, f"{e}_ref")(xin),
-                         lambda: lib(xin).contiguous(), 0.0, 2.0 * 4 * n)
+                         lambda: lib(xin).contiguous(), 0.0, 2.0 * 4 * n,
+                         lone=True)
+    for e, shape, dtype, sliced in LAYOUT_TILE_CASES:
+        dt = getattr(torch, dtype)
+        nbytes = int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+        xx = torch.from_numpy(rng.integers(0, 256, nbytes, dtype=np.uint8)).to(
+            dev).view(dt).reshape(shape)
+        if sliced:
+            xx = xx[1:]
+            check(bool(xx.data_ptr() % 16), "the sliced case is aligned")
+        hold(e, xx, f"{tuple(xx.shape)} {dtype}" + (" x[1:]" if sliced
+                                                   else ""))
+        del xx
+    for c, h, w in LAYOUT_COLD_SHAPES:
+        x = torch.from_numpy(rng.normal(size=(c, h, w)).astype(
+            np.float32)).to(dev)
+        hwc8 = x.permute(1, 2, 0).reshape(h, w, c // 8, 8).contiguous()
+        for e, xin, lib in (("chw_to_hwc8", x, lambda a: a.permute(1, 2, 0)),
+                            ("hwc8_to_chw", hwc8, lambda a: a.reshape(
+                                h, w, c).permute(2, 0, 1))):
+            hold(e, xin, f"{tuple(xin.shape)} f32")
+            rpt = reports[e]
+            cold = rpt.subs.setdefault(
+                "cold", KernelReport(rpt.name, src, rpt.replaces))
+            p = lk.plan(*((c, h * w) if e == "chw_to_hwc8" else (h * w, c)), 4)
+            cold.time(torch, f"{tuple(xin.shape)} cold",
+                      getattr(lk, f"{e}_cuda"), getattr(lr, f"{e}_ref"),
+                      lambda a: lib(a).contiguous(), 0.0,
+                      2.0 * 4 * xin.numel(), inputs=cold_copies(xin),
+                      lone=True)
+            print(f"  {'':14s} tile {p.tile} {lk.tile_elems(p.tile, 4)}, "
+                  f"{p.grid} blocks over {p.units} tiles")
     sync(torch, dev)
     print("  layout transforms: all four entries bit-exact at "
-          f"{LAYOUT_SHAPES}, single, batch 2, bf16, int8 and f64, one "
-          "launch each")
+          f"{LAYOUT_SHAPES}, single, batch 2, bf16, int8 and f64, at "
+          f"{[(e, s, d) for e, s, d, _ in LAYOUT_TILE_CASES]} and at "
+          f"{LAYOUT_COLD_SHAPES} in f32, one launch each")
     return list(reports.values())
 
 

@@ -1,8 +1,8 @@
 """Tunable space of the layout-transform kernel (autotune hook).
 
 Kernel-only space: the axis is the transpose kernel's route
-(:mod:`.kernel`: the 32 x 32 tile, or a short-axis route where one axis
-has at most ``SHORT_MAX`` elements) in place of ``kernel.route``'s
+(:mod:`.kernel`: the tile, or a short-axis route where one axis has at
+most ``SHORT_MAX`` elements) in place of ``kernel.route``'s
 choice; the winning route per bucket lands in the variant catalog as a
 ``kernel::`` entry.  The problem is the calibration sweep's (:mod:`.bench`):
 the scenario's input, CHW -> HWC8 where the channels allow blocking,

@@ -55,6 +55,30 @@ def _data(seed, *shapes, scale=None):
     return out
 
 
+#: the tile route's cases: (shape, dtype, take ``x[1:]``); "one_tile" is
+#: one 8 KB uint8 tile (128 x 64 elements) from CHW, two from
+#: HWC (the HWC8 entries skip the C % 8 != 0 cases)
+_LAYOUT_CASES = {
+    "alexnet_ragged": ((2, 96, 27, 27), torch.float32, False),
+    "uint8": ((2, 64, 20, 30), torch.uint8, False),
+    "bf16": ((2, 64, 20, 30), torch.bfloat16, False),
+    "f64": ((2, 64, 20, 30), torch.float64, False),
+    "ragged_uint8": ((27, 13, 17), torch.uint8, False),
+    "ragged_bf16": ((27, 13, 17), torch.bfloat16, False),
+    "misaligned_uint8": ((3, 25, 7, 9), torch.uint8, True),
+    "one_tile": ((128, 8, 8), torch.uint8, False),
+    "vgg16_conv1_2": ((64, 256, 256), torch.float32, False),
+}
+
+
+def _layout_bits(shape, dtype, device):
+    """Random bits of ``dtype`` (any pattern, NaNs too: compared as
+    bytes), made from a seed."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    raw = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    return torch.from_numpy(raw).to(device).view(dtype).reshape(shape)
+
+
 @pytest.fixture
 def cuda():
     """The card, or a skip: decided when the test runs, never at import."""
@@ -195,17 +219,42 @@ class TestOnCard:
             got = got.permute(0, 3, 1, 2)
         self._close(got, want, 1e-3)
 
-    @pytest.mark.parametrize("entry", ["chw_to_hwc", "hwc_to_chw",
-                                       "chw_to_hwc8", "hwc8_to_chw"])
-    def test_layout_transform(self, cuda, entry):
-        x = torch.from_numpy(_data(7, (2, 96, 27, 27))[0]).to(cuda)
-        hwc = x.permute(0, 2, 3, 1).contiguous()
-        src = {"chw_to_hwc": x, "chw_to_hwc8": x, "hwc_to_chw": hwc,
-               "hwc8_to_chw": hwc.reshape(2, 27, 27, 12, 8)}[entry]
+    @pytest.mark.parametrize("entry,case", [
+        (e, c) for c, (shape, _, _) in _LAYOUT_CASES.items()
+        for e in ("chw_to_hwc", "hwc_to_chw", "chw_to_hwc8", "hwc8_to_chw")
+        if shape[-3] % 8 == 0 or "8" not in e])
+    def test_layout_transform(self, cuda, entry, case):
+        """The tile route bit for bit, one launch a call: AlexNet's
+        ragged (96, 27, 27) at batch 2, every element size, planes whose
+        R * e and S * e are not multiples of 16, a view whose base is not
+        16-byte aligned, a plane of exactly one tile and VGG-16's
+        (64, 256, 256) in f32."""
+        shape, dtype, sliced = _LAYOUT_CASES[case]
+        x = _layout_bits(shape, dtype, cuda)
+        src = x if entry.startswith("chw") else \
+            x.movedim(-3, -1).contiguous()
+        if entry == "hwc8_to_chw":
+            src = src.unflatten(-1, (src.shape[-1] // 8, 8))
+        if sliced:
+            src = src[1:]   # contiguous, its base one plane (1575 B) on
+            assert src.is_contiguous() and src.data_ptr() % 16
         common.reset_launch_counts()
         got = getattr(lt_ops, entry)(src)
         assert common.launch_counts() == {f"layout_transform.{entry}": 1}
-        assert torch.equal(got, getattr(lt_ref, f"{entry}_ref")(src))
+        want = getattr(lt_ref, f"{entry}_ref")(src)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+    @pytest.mark.parametrize("entry,shape", [
+        ("hwc_to_chw", (1449, 1449, 32)), ("hwc8_to_chw", (1449, 1449, 4, 8))])
+    def test_layout_transform_long_hwc_plane(self, cuda, entry, shape):
+        """H*W = 2,099,601 positions, more than 65535 tiles of 32 along R:
+        planned on a 1-D grid, not refused (about 67 MB each)."""
+        x = _layout_bits(shape, torch.uint8, cuda)
+        common.reset_launch_counts()
+        got = getattr(lt_ops, entry)(x)
+        assert common.launch_counts() == {f"layout_transform.{entry}": 1}
+        assert torch.equal(got, getattr(lt_ref, f"{entry}_ref")(x))
 
     @pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16,
                                        torch.float32, torch.float64])

@@ -72,11 +72,18 @@ def test_layout_transforms_equal_the_reference(shape):
 def test_short_channel_axis_takes_the_short_route(c):
     """conv1's bucket (C = 3 or 4) and other short channel axes: each
     thread moves a pixel's whole run of channels, both ways, in 1-, 2-,
-    4- and 8-byte elements."""
+    4- and 8-byte elements; a run of 64 bytes from CHW (8 channels of
+    8 bytes) goes to the tile, whose 16-byte accesses beat the short rows
+    there."""
     for esize in (1, 2, 4, 8):
-        assert lt_kernel.route(c, 256 * 256, esize) == lt_kernel.SHORT_ROWS
+        rows = lt_kernel.TILE if c * esize >= lt_kernel.SHORT_BYTES else \
+            lt_kernel.SHORT_ROWS
+        assert lt_kernel.route(c, 256 * 256, esize) == rows
         assert lt_kernel.route(256 * 256, c, esize) == lt_kernel.SHORT_COLS
-        assert lt_kernel.route(c, 13 * 17, esize) == lt_kernel.SHORT_ROWS
+        assert lt_kernel.route(c, 13 * 17, esize) == rows
+    assert lt_kernel.route(16, 4096, 4) == lt_kernel.TILE
+    assert lt_kernel.route(12, 4096, 4) == lt_kernel.SHORT_ROWS
+    assert lt_kernel.route(4096, 16, 4) == lt_kernel.SHORT_COLS
 
 
 @pytest.mark.parametrize("c", [32, 96, 128, 512])
@@ -87,6 +94,86 @@ def test_long_axes_take_the_tile(c):
     # a short axis longer than the kernel's registers hold
     assert lt_kernel.route(lt_kernel.SHORT_MAX + 1, 4096, 1) == \
         lt_kernel.TILE
+
+
+@pytest.mark.parametrize("r,s,esize,batch", [
+    (1449 * 1449, 32, 1, 1),      # hwc_to_chw of a (1449, 1449, 32) plane
+    (32, 1449 * 1449, 1, 1),
+    (1449 * 1449, 32, 4, 2),
+    (4, 1449 * 1449, 4, 1),       # short rows
+    (1449 * 1449, 4, 8, 1),       # short columns
+    (3, 40, 1, 70000),
+    (40, 3, 2, 70000),
+    (96, 729, 4, 70000),
+    (2 ** 31 - 1, 17, 1, 1),
+])
+def test_plan_takes_any_plane_and_batch(r, s, esize, batch):
+    """No route's grid caps the planes or the batch: planes of more than
+    2,097,120 positions (65535 tiles of 32 along R) and batches above
+    65535 are planned, never refused.  The tile route's grid is 1-D, at
+    most ``BLOCKS_PER_SM`` blocks per SM each striding over tiles; a
+    short route's grid is the C entry's (a plane's blocks on x, the
+    planes on (z, y)), so the plan carries none."""
+    p = lt_kernel.plan(r, s, esize, batch)
+    assert p.route == lt_kernel.route(r, s, esize)
+    if p.route == lt_kernel.TILE:
+        tr, ts = lt_kernel.tile_elems(p.tile, esize)
+        assert p.units == batch * -(-r // tr) * -(-s // ts)
+        assert 1 <= p.grid == min(p.units,
+                                  lt_kernel.BLOCKS_PER_SM * lt_kernel.SMS)
+    else:
+        long_ = s if p.route == lt_kernel.SHORT_ROWS else r
+        per_plane = -(-long_ // lt_kernel.SHORT_THREADS)
+        assert per_plane < 2 ** 31
+        assert p.units == batch * per_plane
+        assert (p.tile, p.grid) == (0, 0)
+    for tile in (0, 1):
+        if lt_kernel.tile_built(tile, esize):
+            q = lt_kernel.plan(r, s, esize, batch, route_=lt_kernel.TILE,
+                               tile_=tile)
+            assert 1 <= q.grid <= min(q.units, 2 ** 31 - 1)
+    assert p.units < 2 ** 31
+
+
+@pytest.mark.parametrize("esize", [1, 2, 4, 8])
+def test_tiles_are_sized_in_bytes(esize):
+    """The kernel builds an 8 KB and a 16 KB tile for each element size
+    but f64 (8 KB only); each is (RB / e) x (SB / e) elements in 16-byte
+    chunks both ways, with eight chunk groups for the swizzle, and the
+    planner picks only tiles the kernel builds."""
+    built = [t for t in (0, 1) if lt_kernel.tile_built(t, esize)]
+    assert built == ([0] if esize == 8 else [0, 1])
+    assert not lt_kernel.tile_built(2, esize)
+    n = 16 // esize
+    for tile in built:
+        tr, ts = lt_kernel.tile_elems(tile, esize)
+        assert tr * ts * esize == lt_kernel.TILE_BYTES[tile]
+        rb, sb = tr * esize, ts * esize
+        assert (rb, sb) in lt_kernel.SHAPES
+        assert rb // 16 >= 8 and (sb // 16) * n >= 8
+    for r, s, b in ((96, 729, 1), (64, 65536, 1), (64, 65536, 8),
+                    (1449 * 1449, 32, 1), (17, 17, 1)):
+        assert lt_kernel.pick_tile(r, s, esize, b) in built
+
+
+def test_pick_tile_follows_the_planes_bytes():
+    """The tile is sized in bytes: 8 KB (64 x 32 in f32) up to planes
+    that hold four 16 KB tiles per SM, then 16 KB (64 x 64 in f32, above
+    8 MiB of planes); 8 KB at a small plane in every element size; never
+    smaller as the batch grows."""
+    f32 = {(128, 1024): 0, (1024, 256): 0, (128, 16384): 0,
+           (64, 65536): 1, (65536, 64): 1}
+    for (r, s), want in f32.items():
+        assert lt_kernel.pick_tile(r, s, 4) == want, (r, s)
+    assert lt_kernel.tile_elems(0, 4) == (64, 32)
+    assert lt_kernel.tile_elems(1, 4) == (64, 64)
+    assert lt_kernel.pick_tile(128, 16384, 4, batch=2) == 1
+    for esize in (1, 2, 4, 8):
+        assert lt_kernel.pick_tile(96, 729, esize) == 0
+        for r, s in ((96, 729), (256, 4096), (1024, 128), (64, 65536)):
+            picks = [lt_kernel.TILE_BYTES[lt_kernel.pick_tile(
+                r, s, esize, b)] for b in (1, 2, 8, 64)]
+            assert picks == sorted(picks)
 
 
 def test_layout_transforms_take_a_batch_axis():

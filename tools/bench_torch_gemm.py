@@ -16,12 +16,17 @@ four GoogLeNet 1x1 GEMMs, K3 AlexNet's conv3-conv5 at F(2,3) and F(4,3),
 batch 1 and 8 (each tree in its own operand layout: the images folded
 into N where the tree's binding takes the reference's 3-D form, one
 image per grid slice before), K4 AlexNet's conv1 and conv2 (HWC in and
-out, batch 1), K5's four entries at the calibration sweep's shapes, K6
-at the sweep's two shapes (1, 4, 1024, 64) and (1, 4, 256, 64) and at
+out, batch 1), K5's four entries at the calibration sweep's shapes and
+at VGG-16's largest buckets and GoogLeNet's (1024, 16, 16), K6 at the
+sweep's two shapes (1, 4, 1024, 64) and (1, 4, 256, 64) and at
 D = 128 and 256 with L = 1024, f32, non-causal (and in bf16 and f16 at
 the sweep's shapes, for trees whose K6 takes them).
 Times are ``chip_smoke.cuda_ms`` (device ms per call, CUDA events over
-20 queued calls, median of 5, warm L2); the library is
+20 queued calls, median of 5, warm L2); K5's are a lone call's, as its
+callers (calibration, the tuner) synchronise after each (``ms``, median
+of ``chip_smoke.LONE_REPS``, with ``queued_ms``, 20 queued calls,
+beside), and at VGG-16's shapes cold (``chip_smoke.cold_ms``); the
+library is
 ``torch.matmul``, ``F.conv2d`` (TF32 off), ``t().contiguous()`` or
 ``F.scaled_dot_product_attention`` (whose device kernels the profiler
 names in ``library_kernels``); the bound is max(flops / 67e12,
@@ -29,8 +34,9 @@ bytes / 3.35e12).  ``--sweep`` also times
 every tile and split count the GEMM's C entries take, at K2's, K1's and
 K3's shapes, batch 1 and 8, and at K4's (trees with the launch planner
 only), each of K5's routes at C = 1 .. 32 channels of 256 x 256
-(trees with routes only), and every query tile and KV split of K6 at its
-four shapes (trees with K6's planner only).  ``--only K6`` (or any of
+(trees with routes only), both tiles of K5's tile route at its shapes
+(trees with the tile planner only), and every query tile and KV split of
+K6 at its four shapes (trees with K6's planner only).  ``--only K6`` (or any of
 K1 .. K6) times those kernels alone.  One JSON object per line on
 stdout; needs one CUDA card.
 """
@@ -347,25 +353,43 @@ def bench_k6(args, rand, emit, bound):
                          q, k, v, scale=scale, plan=pl)))
 
 
-#: K5's timed shapes: (C, H, W) of the calibration sweep's buckets
+#: K5's timed shapes, (C, H, W): the calibration sweep's AlexNet buckets,
+#: timed warm (L2 holds them), and VGG-16's largest buckets and
+#: GoogLeNet's (1024, 16, 16), timed cold (``chip_smoke.cold_ms``)
 K5_SHAPES = ((4, 256, 256), (128, 32, 32), (256, 16, 16), (512, 16, 16))
+K5_COLD_SHAPES = ((64, 256, 256), (128, 128, 128), (256, 64, 64),
+                  (512, 32, 32), (1024, 16, 16))
 
 
 def bench_k5(args, rng, emit):
     """As ``chip_smoke.py`` times them: K5a (CHW -> HWC) and K5b
     (HWC -> CHW) at conv1's bucket, K5c (CHW -> HWC8) and K5d
-    (HWC8 -> CHW) at the others, against ``permute().contiguous()``; with
-    ``--sweep``, each route at C = 1 .. 32 channels of 256 x 256, f32."""
+    (HWC8 -> CHW) at the others, against ``permute().contiguous()``, f32,
+    a lone call at a time (and 20 queued, ``queued_ms``), beside a lone
+    one-element fill, the floor of a lone call; the cold shapes
+    with their operands rotated over more than the L2.  With ``--sweep``,
+    each route at C = 1 .. 32 channels of 256 x 256, and (trees with the
+    tile planner) both tiles of the tile route at every shape, on one
+    block per tile and on 1, 2 and 4 blocks per SM, lone calls."""
     import torch
-    from chip_smoke import HBM_BW, cuda_ms
+    from chip_smoke import HBM_BW, LONE_REPS, cold_copies, cold_ms, cuda_ms
+    lone = dict(reps=LONE_REPS, inner=1)
     from repro_torch.kernels.layout_transform import kernel as lk
     routed = hasattr(lk, "route")
+    planned = hasattr(lk, "plan")
 
     def data(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype("float32")).to(
             "cuda")
 
-    for c, h, w in K5_SHAPES:
+    # what a lone call costs before any work: a one-element fill
+    one = torch.zeros(1, device="cuda")
+    emit(kernel="K5", shape="lone call floor: zero_() of one element",
+         ms=cuda_ms(torch, one.zero_, **lone),
+         queued_ms=cuda_ms(torch, one.zero_))
+
+    for (c, h, w), cold in ([(s, False) for s in K5_SHAPES]
+                            + [(s, True) for s in K5_COLD_SHAPES]):
         x = data(c, h, w)
         hwc = x.permute(1, 2, 0).contiguous()
         if c % 8:
@@ -376,16 +400,40 @@ def bench_k5(args, rng, emit):
                      ("K5d", hwc.reshape(h, w, c // 8, 8),
                       lk.hwc8_to_chw_cuda, (h * w, c))]
         for kern, xin, fn, (r, s_) in cases:
+            ins = cold_copies(xin) if cold else [xin]
+
+            def timed(f, ins=ins, **kw):
+                return cold_ms(torch, f, ins, **kw) if cold else \
+                    cuda_ms(torch, lambda: f(ins[0]), **kw)
             # the library transposes the same (R, S) bytes
-            lib_in = xin.reshape(r, s_)
-            row = dict(kernel=kern, shape=str(tuple(xin.shape)),
-                       ms=cuda_ms(torch, lambda: fn(xin)),
-                       library_ms=cuda_ms(
-                           torch, lambda: lib_in.t().contiguous()),
+            row = dict(kernel=kern, shape=str(tuple(xin.shape)), cold=cold,
+                       ms=timed(fn, **lone), queued_ms=timed(fn),
+                       library_ms=timed(
+                           lambda a: a.reshape(r, s_).t().contiguous(),
+                           **lone),
                        bound_ms=2.0 * 4 * x.numel() / HBM_BW * 1e3)
             if routed:
                 row.update(route=lk.route(r, s_, 4))
+            if planned:
+                p = lk.plan(r, s_, 4)
+                row.update(tile=p.tile, grid=p.grid, units=p.units)
             emit(**row)
+            if not (args.sweep and planned and row["route"] == lk.TILE):
+                continue
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            for tile in (0, 1):
+                pw = lk.plan(r, s_, 4, tile_=tile)
+                grids = {pw.grid, pw.units} | {
+                    min(k * sms, pw.units) for k in (1, 2, 4)}
+                for g in sorted(grids):
+                    pl = lk.LayoutPlan(pw.route, tile, g, pw.units)
+                    emit(kernel=kern, shape=f"{tuple(xin.shape)} sweep",
+                         cold=cold, tile=tile,
+                         tile_elems=lk.tile_elems(tile, 4), grid=pl.grid,
+                         units=pl.units, picked=pl == p,
+                         ms=timed(lambda a, pl=pl: lk.transpose_cuda(
+                             a, r, s_, plan_=pl), **lone))
+            del ins
     if not (args.sweep and routed):
         return
     for c in (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32):
@@ -400,7 +448,7 @@ def bench_k5(args, rng, emit):
                 emit(kernel=kern, shape=f"({c}, 256, 256) sweep", route=rt,
                      picked=rt == lk.route(r, s_, 4),
                      ms=cuda_ms(torch, lambda: lk.transpose_cuda(
-                         xin, r, s_, rt)))
+                         xin, r, s_, rt), **lone))
 
 
 if __name__ == "__main__":

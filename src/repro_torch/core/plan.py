@@ -55,6 +55,7 @@ import torch.distributed as dist
 from ..kernels.common import (add_launches, recording_launches,
                               resolve_device, true_f32)
 from ..obs.metrics import default_registry
+from ..obs.spans import span
 from ..obs.trace import get_tracer
 from .graph import Net
 from .layouts import LAYOUT_BY_NAME
@@ -80,10 +81,15 @@ def compile_count() -> int:
     return _COMPILE_COUNTER.value
 
 
-def _tensor(a, device: torch.device) -> torch.Tensor:
+def _host_tensor(a) -> torch.Tensor:
+    """``a`` as a tensor where it lies (a numpy array's memory, shared)."""
     if isinstance(a, torch.Tensor):
-        return a.to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return a
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    return _host_tensor(a).to(device)
 
 
 def _host(a) -> np.ndarray:
@@ -122,13 +128,15 @@ class CapturedForward:
     capture while the caller replays another executable.  A capture that
     fails raises: nothing runs eagerly in its place.
 
-    :meth:`run` copies the input into the static buffer, replays the
-    graph and returns clones of the static outputs (a later call does not
-    overwrite them), all on the graph's stream under a lock, with the
-    caller's stream ordered before and after.  The launch counts see the
-    warm-up's launches and each replay's, never the capture's: a capture
-    records kernels and launches none.  The graph reads the
-    executable's packed parameters at the addresses they had at capture.
+    :meth:`run` orders the graph's stream after the caller's and copies
+    the input into the static buffer (span ``copy_in``), then replays the
+    graph, clones the static outputs (a later call does not overwrite
+    them) and orders the caller's stream after (span ``replay``, host
+    enqueue time), all on the graph's stream under a lock.  The launch
+    counts see the warm-up's launches and each replay's, never the
+    capture's: a capture records kernels and launches none.  The graph
+    reads the executable's packed parameters at the addresses they had
+    at capture.
     """
 
     def __init__(self, forward: Callable, x: torch.Tensor,
@@ -163,21 +171,24 @@ class CapturedForward:
         #: replays so far
         self.replays = 0
 
-    def run(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if x.shape != self.static_in.shape:
+    def run(self, x) -> Dict[str, torch.Tensor]:
+        """One replay on ``x``, a tensor or a numpy array."""
+        if tuple(x.shape) != tuple(self.static_in.shape):
             raise ValueError(f"the graph was captured for input "
                              f"{tuple(self.static_in.shape)}, got "
                              f"{tuple(x.shape)}")
         caller = torch.cuda.current_stream(self.static_in.device)
-        with self._lock:
-            self.stream.wait_stream(caller)
-            with torch.cuda.stream(self.stream):
+        with self._lock, torch.cuda.stream(self.stream):
+            with span("copy_in"):
+                self.stream.wait_stream(caller)
+                x = _host_tensor(x)
                 self.static_in.copy_(x)
+            with span("replay"):
                 self.graph.replay()
                 out = {k: v.clone() for k, v in self.static_out.items()}
                 self.replays += 1
-            add_launches(self.launches)
-            caller.wait_stream(self.stream)
+                add_launches(self.launches)
+                caller.wait_stream(self.stream)
         if x.is_cuda:
             x.record_stream(self.stream)
         for v in out.values():
@@ -231,13 +242,14 @@ class CompiledNet:
     def __call__(self, x):
         if not (self.jit and self.device.type == "cuda"
                 and self.mesh is None):
-            return self.forward(_tensor(x, self.device))
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+            with span("copy_in"):
+                x = _tensor(x, self.device)
+            return self.forward(x)
         if self.graph is None:
             with _CAPTURE_LOCK:
                 if self.graph is None:
-                    self.graph = CapturedForward(self.forward, x,
+                    self.graph = CapturedForward(self.forward,
+                                                 _host_tensor(x),
                                                  self.device)
         return self.graph.run(x)
 

@@ -4,6 +4,10 @@
   verbatim copies of the reference's stdlib-only modules;
   ``repro_torch.core`` imports them (the PBQP solver's span,
   ``compile_plan``'s counter);
+* :mod:`repro_torch.obs.spans` — the serving path's host-step spans on
+  that tracer, each also a profiler range of its name while
+  ``torch.profiler`` records (docs/observability.md, "The port's
+  spans");
 * :mod:`repro_torch.obs.drift` — instrumented per-node execution of
   compiled plans, predicted-vs-observed EWMA drift scores, and targeted
   recalibration of the flagged calibration entries.
@@ -16,10 +20,12 @@ from __future__ import annotations
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       default_registry)
+from .spans import span, tracing
 from .trace import Span, Tracer, configure, get_tracer
 
 __all__ = [
     "Span", "Tracer", "get_tracer", "configure",
+    "span", "tracing",
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "default_registry",
     "drift", "InstrumentedNet", "DriftDetector", "plan_predictions",

@@ -89,6 +89,7 @@ from threading import RLock
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from ..core.costs import CostModel
@@ -97,7 +98,8 @@ from ..core.plan import CompiledNet, compile_plan, mesh_shape_dict
 from ..core.selection import SelectionResult, select_local_optimal
 from ..kernels.common import resolve_device
 from ..launch.mesh import mesh_fingerprint
-from ..obs.trace import get_tracer
+from ..obs.spans import span, tracing
+from ..obs.trace import NULL_SPAN, get_tracer
 from ..reliability import (FallbackLadder, FaultInjector, KernelFailure,
                            PrimitiveQuarantine, diagnose_nonfinite,
                            reference_selection, retry_call)
@@ -559,7 +561,9 @@ class PlanServer:
             if out is not None:
                 if not self.guard_outputs:
                     return out, cnet
-                if all(np.isfinite(v).all() for v in out.values()):
+                with span("guard"):
+                    finite = all(np.isfinite(v).all() for v in out.values())
+                if finite:
                     return out, cnet
                 failure = KernelFailure(bkey, culprit,
                                         "non-finite outputs")
@@ -670,27 +674,30 @@ class PlanServer:
         x = np.asarray(x_chw, np.float32)
         if x.ndim != 3:
             raise ValueError(f"expected (C, H, W) input, got {x.shape}")
-        tracer = get_tracer()
-        with tracer.span("infer", shape="x".join(map(str, x.shape))):
-            cnet = self.compiled_for(x.shape)
-            bshape = bucket_shape(x.shape, self.policy)
-            bkey = bucket_key(bshape, cnet.batch)
-            pads = [(0, b - s) for b, s in zip(bshape, x.shape)]
-            xb = np.pad(x, pads)
-            if cnet.batch > 1:
-                # a policy whose batch bucket for n=1 is > 1 (linear
-                # batch mode, min_n > 1) hands the single request a
-                # batched executable: embed the image as row 0, zero
-                # rows pad
-                xb = np.concatenate(
-                    [xb[None], np.zeros((cnet.batch - 1, *bshape),
-                                        np.float32)])
-            expected = self._expected_out_shapes(x.shape)
+        with span("infer") as sp:
+            if sp is not NULL_SPAN:
+                sp.set(shape="x".join(map(str, x.shape)))
+            with span("lookup"):
+                cnet = self.compiled_for(x.shape)
+                bshape = bucket_shape(x.shape, self.policy)
+                bkey = bucket_key(bshape, cnet.batch)
+                expected = self._expected_out_shapes(x.shape)
+            with span("pad"):
+                pads = [(0, b - s) for b, s in zip(bshape, x.shape)]
+                xb = np.pad(x, pads)
+                if cnet.batch > 1:
+                    # a policy whose batch bucket for n=1 is > 1 (linear
+                    # batch mode, min_n > 1) hands the single request a
+                    # batched executable: embed the image as row 0, zero
+                    # rows pad
+                    xb = np.concatenate(
+                        [xb[None], np.zeros((cnet.batch - 1, *bshape),
+                                            np.float32)])
             t0 = time.perf_counter()
-            with tracer.span("execute", bucket=bkey):
+            with span("execute", bucket=bkey):
                 out, cnet = self._execute_guarded(cnet, xb, bshape,
                                                   cnet.batch)
-            with tracer.span("crop"):
+            with span("crop"):
                 out = {nid: self._crop(
                            v[0] if cnet.batch > 1 else v,
                            expected.get(nid, ()))
@@ -718,12 +725,11 @@ class PlanServer:
                 raise ValueError(f"expected (C, H, W) inputs, got {x.shape}")
         if not imgs:
             return []
-        with get_tracer().span("infer_batch", requests=len(imgs)) as sp:
+        with span("infer_batch", requests=len(imgs)) as sp:
             return self._infer_batch_traced(imgs, sp)
 
     def _infer_batch_traced(self, imgs: List[np.ndarray], sp
                             ) -> List[Dict[str, np.ndarray]]:
-        tracer = get_tracer()
         groups: "OrderedDict[Shape, List[int]]" = OrderedDict()
         for i, x in enumerate(imgs):
             groups.setdefault(bucket_shape(x.shape, self.policy),
@@ -744,23 +750,24 @@ class PlanServer:
         results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(imgs)
         seen_specs = set()
         for bshape, nb, chunk in chunks:
-            if prefetched:
-                cnet = prefetched[(bshape, nb)].result()
-                if (bshape, nb) in seen_specs:
-                    # the sequential path would have taken an LRU hit
-                    # here; keep the counters path-independent
-                    self.counters.add(exec_hits=1)
-                seen_specs.add((bshape, nb))
-            else:
-                cnet = self.compiled_for(bshape, n=nb)
-            xb = np.zeros((nb, *bshape), np.float32)
-            for row, i in enumerate(chunk):
-                x = imgs[i]
-                xb[row, :x.shape[0], :x.shape[1], :x.shape[2]] = x
-            bkey = bucket_key(bshape, nb)
+            with span("lookup"):
+                if prefetched:
+                    cnet = prefetched[(bshape, nb)].result()
+                    if (bshape, nb) in seen_specs:
+                        # the sequential path would have taken an LRU
+                        # hit here; keep the counters path-independent
+                        self.counters.add(exec_hits=1)
+                    seen_specs.add((bshape, nb))
+                else:
+                    cnet = self.compiled_for(bshape, n=nb)
+                bkey = bucket_key(bshape, nb)
+            with span("stack"):
+                xb = np.zeros((nb, *bshape), np.float32)
+                for row, i in enumerate(chunk):
+                    x = imgs[i]
+                    xb[row, :x.shape[0], :x.shape[1], :x.shape[2]] = x
             t0 = time.perf_counter()
-            with tracer.span("execute", bucket=bkey,
-                             coalesced=len(chunk)):
+            with span("execute", bucket=bkey, coalesced=len(chunk)):
                 out, cnet = self._execute_guarded(
                     cnet, xb if nb > 1 else xb[0], bshape, nb)
             # coalesced counts per *invocation*: requests that
@@ -768,7 +775,7 @@ class PlanServer:
             self.counters.add(_bucket=bkey, batch_calls=1,
                               coalesced=len(chunk) - 1,
                               execute_s=time.perf_counter() - t0)
-            with tracer.span("crop"):
+            with span("crop"):
                 for row, i in enumerate(chunk):
                     expected = self._expected_out_shapes(imgs[i].shape)
                     results[i] = {
@@ -865,6 +872,13 @@ class _Escape(BaseException):
 
 
 def _to_host(outs) -> Dict[str, np.ndarray]:
-    """An executable's outputs as numpy arrays (each copy waits for the
-    stream that produced it)."""
-    return {nid: v.detach().cpu().numpy() for nid, v in outs.items()}
+    """An executable's outputs as numpy arrays (span ``copy_out``; each
+    copy waits for the stream that produced it).  While tracing, the
+    wait on a card is made first and on its own (span ``device_wait``)."""
+    if tracing():
+        dev = next((v.device for v in outs.values() if v.is_cuda), None)
+        if dev is not None:
+            with span("device_wait"):
+                torch.cuda.current_stream(dev).synchronize()
+    with span("copy_out"):
+        return {nid: v.detach().cpu().numpy() for nid, v in outs.items()}

@@ -813,6 +813,64 @@ class TestServingGraphs:
             srv.close()
 
 
+#: the spans under ``execute`` on the graph path, in order
+_GRAPH_STEPS = ["copy_in", "replay", "device_wait", "copy_out", "guard"]
+
+
+@pytest.mark.gpu
+class TestServingSpans:
+    def test_graph_path_spans_and_profiler_ranges(self, cuda,
+                                                  alexnet_plans):
+        """A served graph's ``execute`` splits into copy in, replay, the
+        wait for the stream, copy out and the non-finite guard, and
+        they hold most of it; under ``torch.profiler`` each span is a
+        host range of its name, and none is a device event (a device
+        annotation would widen the busy time read from the trace)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.convnets import alexnet
+        from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+        from repro_torch.obs.trace import configure
+        from repro_torch.serving import BucketPolicy, PlanServer
+        _, _, xs = alexnet_plans
+        srv = PlanServer(lambda s: alexnet(1.0),
+                         AnalyticCostModel(H100_SPEC, include_kernels=True),
+                         policy=BucketPolicy(spatial="exact",
+                                             channel="exact"))
+        recs = []
+        try:
+            srv.infer(xs[0])  # the capture
+            configure(recs, enabled=True)
+            srv.infer(xs[1])
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                srv.infer(xs[2])
+                torch.cuda.synchronize()
+        finally:
+            configure(None, enabled=False)
+            srv.close()
+        roots = [r for r in recs if r["name"] == "infer"]
+        assert len(roots) == 2
+        for root in roots:
+            mine = [r for r in recs if r["trace"] == root["trace"]]
+            ex = next(r for r in mine if r["name"] == "execute")
+            kids = sorted((r for r in mine if r["parent"] == ex["span"]),
+                          key=lambda r: r["t0"])
+            assert [r["name"] for r in kids] == _GRAPH_STEPS
+            assert all(r["t0"] + r["dur_s"] <= ex["t0"] + ex["dur_s"]
+                       for r in kids)
+            # what no step names (stream bookkeeping) is the lesser part
+            assert sum(r["dur_s"] for r in kids) > 0.5 * ex["dur_s"]
+        events = prof.profiler.kineto_results.events()
+        host = {e.name() for e in events
+                if e.device_type() == torch.autograd.DeviceType.CPU}
+        dev = {e.name() for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA}
+        names = {"infer", "lookup", "pad", "execute", "crop", *_GRAPH_STEPS}
+        assert names <= host
+        assert not names & dev
+
+
 # ----------------------------------------------------------------------
 # tuned variants: every launch space's configurations, pinned
 # ----------------------------------------------------------------------

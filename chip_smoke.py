@@ -245,6 +245,23 @@ TOL_BF16 = 2e-2
 #: magnitude), so 1e-5; bf16 outputs are rounded to 8 bits, as above.
 #: The layout transforms copy bits: they must be exact.
 TOL_ATTN = 1e-5
+#: the Winograd transforms in f32: the plain einsums' arithmetic with the
+#: same matrices, summed in another order, so 1e-5 of the largest magnitude
+TOL_WT = 1e-5
+#: the Winograd transforms' timed shapes: (conv, C, M, H = W) of VGG-16's
+#: 3x3 convolutions and F(m, 3) as the cells' plans run them at batch 1
+#: (``wino2d_f6x3_chw``, and K3's F(4,3) on conv3_1 and conv5) and at batch
+#: 16 (``wino2d_f6x3_chw`` on every one), then AlexNet's conv2 (F(4,5),
+#: batch 1); conv3_3, conv4_3 and conv5_2-5_3 repeat a shape above
+WT_VGG = [("conv1_2", 64, 64, 224), ("conv2_1", 64, 128, 112),
+          ("conv2_2", 128, 128, 112), ("conv3_1", 128, 256, 56),
+          ("conv3_2", 256, 256, 56), ("conv4_1", 256, 512, 28),
+          ("conv4_2", 512, 512, 28), ("conv5_1", 512, 512, 14)]
+WT_B1_M = {"conv3_1": 4, "conv5_1": 4}
+WT_ALEXNET = ("conv2", 96, 256, 27, 5, 2, 4)
+#: the transforms' ragged planes (tiles overhang): (C, M, H, W) at every
+#: (m, k) the kernels are built for, CHW and HWC in and out, batch 1 and 3
+WT_RAGGED = [(5, 7, 13, 9), (3, 4, 7, 7)]
 #: the calibration sweep's layout-transform shapes (AlexNet's buckets),
 #: a ragged one, and short channel axes (C = 1 .. 8, the kernel's
 #: short-axis routes) over ragged H*W
@@ -407,14 +424,20 @@ def device_profile(torch, fn, calls: int = 3):
 class KernelReport:
     """Accumulates one kernel's shapes: error, times and bound.
 
-    ``name`` is the kernel's launch counter.  ``on_path``: whether the
+    ``name`` is the kernel's launch counter unless ``counter`` names
+    another (one shared with other kernels).  ``on_path``: whether the
     calibration path launches it (K5b and K5d, the reverse transforms,
     are reached only through ``convert``, which the sweep does not call
     in that direction)."""
 
-    def __init__(self, name, source, replaces, on_path=True):
+    def __init__(self, name, source, replaces, on_path=True, counter=None,
+                 shared_by=1):
         self.name, self.source, self.replaces = name, source, replaces
         self.on_path = on_path
+        #: the launch counter that counts this kernel (by default its
+        #: name), and how many kernels, launched once each, share it (the
+        #: Winograd transforms' input and output: 2)
+        self.counter, self.shared_by = counter or name, shared_by
         self.err = self.rel_err = 0.0
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.ops_s = self.bytes_s = self.bound_s = 0.0
@@ -452,22 +475,26 @@ class KernelReport:
              plan=None, inputs=None, lone=False):
         """Warm (``cuda_ms``) where ``inputs`` is None; else cold, each of
         the three called on ``inputs`` in turn (``cold_ms``).  ``lone``:
-        a lone call's time (``LONE_REPS``), not back-to-back calls'."""
+        a lone call's time (``LONE_REPS``), not back-to-back calls'.
+        ``library`` None: no one PyTorch call computes the function, and
+        ``library_ms`` stays None."""
         kw = dict(reps=LONE_REPS, inner=1) if lone else {}
 
         def timed(fn):
             return cuda_ms(torch, fn, **kw) if inputs is None else \
                 cold_ms(torch, fn, inputs, **kw)
-        ms, pms, lms = timed(kernel), timed(plain), timed(library)
+        ms, pms = timed(kernel), timed(plain)
+        lms = None if library is None else timed(library)
         o, b = flops / PEAK_F32, nbytes / HBM_BW
         self.ms += ms
         self.plain_ms += pms
-        self.library_ms += lms
+        self.library_ms = None if lms is None else self.library_ms + lms
         self.ops_s += o
         self.bytes_s += b
         self.bound_s += max(o, b)
+        lib = "none" if lms is None else f"{lms:.4f} ms"
         print(f"  {self.name:14s} {what:34s} kernel {ms:.4f} ms  plain "
-              f"{pms:.4f} ms  library {lms:.4f} ms  bound "
+              f"{pms:.4f} ms  library {lib}  bound "
               f"{max(o, b) * 1e3:.4f} ms ({'ops' if o >= b else 'bytes'})"
               + (f"  [{plan.describe()}]" if plan is not None else ""))
 
@@ -479,9 +506,12 @@ class KernelReport:
         ``lm_serve``); for the kernels that no path runs (K5), the sum
         over the calibration path's kernel items, one call each.  Every
         path's own count is listed beside, and each report in ``subs``
-        (K3's times at batch 8, K6's at the LM paths' prefill shapes)."""
-        by_path = {p: c[self.name] for p, c in paths.items()
-                   if c.get(self.name)}
+        (K3's times at batch 8, K6's at the LM paths' prefill shapes).
+        A counter shared by ``shared_by`` kernels counts each once a use:
+        this kernel's launches are its count over ``shared_by``, and the
+        entry names the counter."""
+        by_path = {p: c[self.counter] // self.shared_by
+                   for p, c in paths.items() if c.get(self.counter)}
         first = next((p for p in by_path
                       if p.endswith("_b1") or p == "lm_serve"), None)
         if first:
@@ -499,6 +529,10 @@ class KernelReport:
                  "bound_by": ("operations" if self.ops_s >= self.bytes_s
                               else "bytes"),
                  "library_ms": self.library_ms}
+        if self.shared_by > 1:
+            entry["launches_of_counter"] = (
+                f"{self.counter} / {self.shared_by}: the counter counts "
+                f"{self.shared_by} kernels, each launched once a use")
         for key, sub in self.subs.items():
             entry[key] = {"ms": sub.ms, "plain_ms": sub.plain_ms,
                           "library_ms": sub.library_ms,
@@ -507,10 +541,11 @@ class KernelReport:
 
 
 #: the sources whose kernels must spill nothing: those on the GEMM
-#: mainloop (``csrc/sgemm_sm90.cuh``), flash attention's and the layout
-#: transform's
+#: mainloop (``csrc/sgemm_sm90.cuh``), flash attention's, the layout
+#: transform's and the Winograd transforms'
 MAINLOOP_SOURCES = ("matmul.cu", "conv_direct.cu", "winograd_gemm.cu",
-                    "flash_attention.cu", "layout_transform.cu")
+                    "flash_attention.cu", "layout_transform.cu",
+                    "winograd_transform.cu")
 
 
 def demangle(names):
@@ -820,6 +855,105 @@ def layout_phase(torch, dev):
     return list(reports.values())
 
 
+def winograd_transform_phase(torch, dev):
+    """The 2-D Winograd input and output transforms against their plain
+    einsums (``TOL_WT``), one launch each: every (m, k) on the ragged
+    planes ``WT_RAGGED``, CHW and HWC in and out, batch 1 and 3; at each
+    timed shape in CHW, and at batch 1 also HWC.  Timed as a lone call,
+    warm, at VGG-16's shapes as the b1 and b16 cells' plans run them
+    (``WT_VGG``) and AlexNet's conv2, beside their bound (the bytes each
+    must move over 3.35e12 B/s) and the plain version; no one PyTorch call
+    computes a transform (library none).  Reports: the input and output
+    transforms at VGG-16 batch 1, and as ``subs`` at batch 16 and at
+    AlexNet's conv2."""
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.kernels.common import launch_counts, reset_launch_counts
+    from repro_torch.kernels.winograd_transform import (
+        PAIRS, input_transform_cuda, input_transform_ref, operands,
+        output_transform_cuda, output_transform_ref, transform_bytes)
+    from repro_torch.kernels.winograd_transform import ops as wo
+
+    src = "src/repro_torch/csrc/winograd_transform.cu"
+    reports = {w: KernelReport(f"winograd_transform.{w}", src,
+                               f"none: the {w} transform's einsums, which "
+                               "XLA fuses", counter="winograd_transform",
+                               shared_by=2)
+               for w in ("input", "output")}
+
+    def hold(rpt, fn, args, plain, what):
+        reset_launch_counts()
+        got = fn(*args)
+        counts = launch_counts()
+        check(counts == {"winograd_transform": 1},
+              f"winograd_transform {what}: launches {counts}")
+        rpt.compare(got, plain(*args), TOL_WT, what)
+
+    def hold_both(scn, m_, lays, what):
+        """Both transforms at ``scn`` (batch ``scn.n``), F(m_, scn.k), for
+        each (input layout, output layout) of ``lays``."""
+        x, q, b = operands(scn, m_, device=dev)
+        k, pad = scn.k, scn.pad
+        for li, lo in lays:
+            xv = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2) \
+                if li == "HWC" else x
+            hold(reports["input"], lambda a: wo.input_transform(
+                a, m_=m_, k=k, pad=pad), (xv,),
+                lambda a: input_transform_ref(a, m_, k, pad),
+                f"input F({m_},{k}) {what} {li}")
+            hold(reports["output"], lambda a, c: wo.output_transform(
+                a, c, m_=m_, k=k, n=scn.n, oh=scn.out_h, ow=scn.out_w,
+                out_layout=lo), (q, b),
+                lambda a, c: output_transform_ref(
+                    a, c, m_, k, scn.n, scn.out_h, scn.out_w, lo),
+                f"output F({m_},{k}) {what} {lo}")
+        return x, q, b
+
+    every = [("CHW", "CHW"), ("HWC", "HWC"), ("CHW", "HWC"), ("HWC", "CHW")]
+    for c, mo, h, w in WT_RAGGED:
+        for m_, k in PAIRS:
+            for n in (1, 3):
+                hold_both(Scenario(c=c, h=h, w=w, stride=1, k=k, m=mo,
+                                   pad=k // 2, n=n), m_, every,
+                          f"{(n, c, h, w)}")
+
+    def timed(label, conv, scn, m_, batch_rpt):
+        x, q, b = hold_both(
+            scn, m_, every if scn.n == 1 else every[:1], f"{conv} {label}")
+        nin, nout = transform_bytes(scn, m_)
+        k, pad = scn.k, scn.pad
+        for w, fn, plain, nbytes in (
+                ("input", lambda: input_transform_cuda(x, m_, k, pad),
+                 lambda: input_transform_ref(x, m_, k, pad), nin),
+                ("output", lambda: output_transform_cuda(
+                    q, b, m_, k, scn.n, scn.out_h, scn.out_w),
+                 lambda: output_transform_ref(q, b, m_, k, scn.n, scn.out_h,
+                                              scn.out_w), nout)):
+            r = reports[w] if batch_rpt is None else \
+                reports[w].subs.setdefault(batch_rpt, KernelReport(
+                    reports[w].name, src, reports[w].replaces))
+            ms0 = r.ms
+            r.time(torch, f"{w} {conv} F({m_},{k}) {label}", fn, plain, None,
+                   0.0, nbytes, lone=True)
+            print(f"  {'':14s} {w} {conv} {label}: kernel / bound "
+                  f"{(r.ms - ms0) / (nbytes / HBM_BW * 1e3):.2f}")
+
+    for conv, c, mo, hw in WT_VGG:
+        for n, label, sub in ((1, "b1", None), (16, "b16", "b16")):
+            m_ = WT_B1_M.get(conv, 6) if n == 1 else 6
+            timed(label, conv, Scenario(c=c, h=hw, w=hw, stride=1, k=3,
+                                        m=mo, n=n), m_, sub)
+    conv, c, mo, hw, k, pad, m_ = WT_ALEXNET
+    timed("b1", f"alexnet {conv}",
+          Scenario(c=c, h=hw, w=hw, stride=1, k=k, m=mo, pad=pad), m_,
+          "alexnet_conv2")
+    sync(torch, dev)
+    print(f"  winograd transforms: both within {TOL_WT} of the plain "
+          f"einsums at every (m, k) of {PAIRS} on {WT_RAGGED}, CHW and HWC "
+          f"in and out, batch 1 and 3, and at the timed shapes; one launch "
+          f"each")
+    return list(reports.values())
+
+
 def attention_phase(torch, F, dev):
     """K6: flash attention against its plain version on the sweep's two
     shapes and on every option of the kernel, head dims 7 to 320 (padded
@@ -1092,6 +1226,8 @@ def calibration_phase(torch, dev, out_dir, run_path, paths, net, params,
             counts = launch_counts()
             paths[f"calibrate_{kname}_{scn.key()}"] = counts
             want = {kname: 1}
+            if kname == "winograd_gemm":  # and its two transforms
+                want["winograd_transform"] = 2
             if kname == "layout_transform":
                 entry_ = "chw_to_hwc8" if scn.c % 8 == 0 else "chw_to_hwc"
                 want = {f"layout_transform.{entry_}": 1}
@@ -1191,7 +1327,7 @@ def serving_phase(torch, dev, xs, sum2d_prob, paths):
     from repro_torch.convnets import alexnet
     from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
     from repro_torch.core.plan import compile_plan
-    from repro_torch.kernels import expected_launches
+    from repro_torch.kernels import all_launches, expected_launches
     from repro_torch.kernels.common import launch_counts, reset_launch_counts
     from repro_torch.reliability import FaultInjector, parse_fault_plan
     from repro_torch.serving import BucketPolicy, PlanServer
@@ -1235,7 +1371,7 @@ def serving_phase(torch, dev, xs, sum2d_prob, paths):
 
     def check_capture(srv, n, what):
         cnet = srv.compiled_for(shape, n)
-        want = expected_launches(cnet.sel)
+        want = all_launches(cnet.sel)
         check(cnet.graph is not None and cnet.capture_launches == want,
               f"{what}: capture launches {cnet.capture_launches}, "
               f"expected {want}")
@@ -1266,7 +1402,7 @@ def serving_phase(torch, dev, xs, sum2d_prob, paths):
         got = srv.compiled_for(shape, n).graph.replays
         check(got == replays[n], f"batch {n}: {got} replays, expected "
               f"{replays[n]}")
-        for k, v in expected_launches(sel).items():
+        for k, v in all_launches(sel).items():
             want[k] += (1 + replays[n]) * v
     check(counts == dict(want), f"serving path: launches {counts}, "
           f"expected warm-up + replays of each executable {dict(want)}")
@@ -1427,17 +1563,20 @@ def tune_args():
 class LaunchSpy:
     """Records every C entry's arguments while active: the pinned tile
     and split count (the query tile and KV split, the route) a wrapper
-    passed down are the launch the card ran."""
+    passed down are the launch the card ran.  The Winograd transforms
+    around a pinned GEMM pin nothing and are not recorded."""
 
     def __init__(self):
         from repro_torch.kernels.common import KernelLib
-        self.cls, self.calls = KernelLib, []
+        from repro_torch.kernels.winograd_transform import LIB
+        self.cls, self.calls, self.skip = KernelLib, [], LIB
 
     def __enter__(self):
-        orig, calls = self.cls.call, self.calls
+        orig, calls, skip = self.cls.call, self.calls, self.skip
 
         def call(lib, entry, *args):
-            calls.append((entry, args))
+            if lib is not skip:
+                calls.append((entry, args))
             return orig(lib, entry, *args)
         self.orig = orig
         self.cls.call = call
@@ -1845,7 +1984,7 @@ def drift_phase(torch, dev, paths, net, params, x1, sum2d1, taps_,
     from repro_torch.calibrate import HardwareProfile
     from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
     from repro_torch.core.plan import compile_plan
-    from repro_torch.kernels import expected_launches
+    from repro_torch.kernels import all_launches
     from repro_torch.kernels.common import launch_counts, reset_launch_counts
     from repro_torch.obs import drift
 
@@ -1904,7 +2043,7 @@ def drift_phase(torch, dev, paths, net, params, x1, sum2d1, taps_,
         agree(compile_plan(sel, params, jit=False, device=dev,
                            outputs=taps_)(x1), sum2d1,
               f"drift round {rnd['round']} vs SUM2D")
-        for k, v in expected_launches(sel).items():
+        for k, v in all_launches(sel).items():
             want[k] = want.get(k, 0) + (1 + DRIFT_RUNS) * v
         print(f"  round {rnd['round']}: plan ratio {rnd['plan_ratio']:.4f}, "
               f"predicted {rnd['predicted_cost'] * 1e3:.4f} ms, flagged "
@@ -3132,7 +3271,7 @@ def mesh_alexnet(torch, dev, mesh, axes, label, paths, scale, reps):
     from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
     from repro_torch.core.plan import compile_plan, measure
     from repro_torch.core.selection import select_pbqp, select_sum2d
-    from repro_torch.kernels import expected_launches
+    from repro_torch.kernels import all_launches
     cost = AnalyticCostModel(H100_SPEC, include_kernels=True)
     net = alexnet(scale).with_batch(MESH_BATCH)
     params = net.init_params(seed=0)
@@ -3148,7 +3287,7 @@ def mesh_alexnet(torch, dev, mesh, axes, label, paths, scale, reps):
     one = compile_plan(one_sel, params, batch=MESH_BATCH, device=dev,
                        jit=False, outputs=t_)
     name = f"mesh_{cn.mesh_mode}_alexnet_{label}"
-    out = mesh_path(torch, dev, paths, name, cn, x, expected_launches(sel))
+    out = mesh_path(torch, dev, paths, name, cn, x, all_launches(sel))
     check(cn.graph is None, f"{name}: a mesh executable was captured")
     agree(out, one(x), f"{name} vs the single-device PBQP plan")
     agree(out, compile_plan(select_sum2d(net, cost), params,
@@ -3193,7 +3332,7 @@ def mesh_pinned(torch, dev, mesh, axes, label, paths, scale):
     from repro_torch.core.primitives import registry
     from repro_torch.core.selection import (PlacementPricing, select_fixed,
                                             select_sum2d)
-    from repro_torch.kernels import expected_launches
+    from repro_torch.kernels import all_launches
     cost = AnalyticCostModel(H100_SPEC, include_kernels=True)
     b = MESH_PINNED_BATCH
     rng = np.random.default_rng(0)
@@ -3232,7 +3371,7 @@ def mesh_pinned(torch, dev, mesh, axes, label, paths, scale):
                           jit=False, outputs=t_)
         name = f"mesh_{cn.mesh_mode}_pinned_{prim.name}_{which}_{label}"
         out = mesh_path(torch, dev, paths, name, cn, x,
-                        expected_launches(psel))
+                        all_launches(psel))
         agree(out, compile_plan(psel, params, batch=b, device=dev,
                                 jit=False, outputs=t_)(x),
               f"{name} vs the same selection on one device")
@@ -3593,7 +3732,7 @@ def main() -> int:
     from repro_torch.core.primitives import registry
     from repro_torch.core.selection import (select_fixed, select_pbqp,
                                             select_sum2d)
-    from repro_torch.kernels import expected_launches, kernel_libs
+    from repro_torch.kernels import all_launches, kernel_libs
     from repro_torch.kernels.common import (build_all, launch_counts,
                                             reset_launch_counts, true_f32)
 
@@ -3622,6 +3761,7 @@ def main() -> int:
     dev = torch.device("cuda")
     with true_f32():
         reports = (kernel_phase(torch, F) + layout_phase(torch, dev)
+                   + winograd_transform_phase(torch, dev)
                    + attention_phase(torch, F, dev))
         print("== whole convolutions of the kernel primitives against f64 "
               "F.conv2d ==")
@@ -3638,7 +3778,7 @@ def main() -> int:
         out = cnet(x)
         torch.cuda.synchronize()
         paths[name] = launch_counts()
-        want = expected_launches(cnet.sel)
+        want = all_launches(cnet.sel)
         check(paths[name] == want, f"path {name}: launches {paths[name]}, "
               f"expected one per kernel conv {want}")
         print(f"  path {name}: launches {paths[name]}")
@@ -3830,7 +3970,7 @@ def main() -> int:
                   next(r for r in reports if r.name == "flash_attention"))
     print(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
     for r in reports:
-        check(not r.on_path or any(c.get(r.name) for c in paths.values()),
+        check(not r.on_path or any(c.get(r.counter) for c in paths.values()),
               f"kernel {r.name} never launched on a path")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")

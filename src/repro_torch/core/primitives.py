@@ -28,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.winograd_gemm.ops import winograd_tensors
+from ..kernels.winograd_transform import ops as wt
+from ..kernels.winograd_transform.ref import winograd_tensors
 from .layouts import LAYOUT_BY_NAME
 from .scenario import Scenario
 from .winograd_transforms import winograd_matrices
@@ -517,27 +518,22 @@ def _kn2_prepare(scn, w, b):
 # winograd family (stride-1, K in {3, 5})
 # ======================================================================
 def _wino2d(scn: Scenario, m_: int, l_in: str, l_out: str):
-    a = m_ + scn.k - 1
+    """The input transform, one batched product over the alpha^2 points
+    and the output transform (``kernels.winograd_transform``: kernels on
+    the card, the einsums on the CPU).  CHW and HWC enter and leave
+    through the transforms' strides; any other layout is converted."""
+    out = l_out if l_out in ("CHW", "HWC") else "CHW"
 
     def f(x, packed):
-        A, _, Bt = winograd_tensors(m_, scn.k, x.device)
-        U = packed["w"]  # (M, C, a, a) transformed kernels
-        n = x.shape[0]
-        xc = _to_chw(x, l_in)
-        oh, ow = scn.out_h, scn.out_w
-        nth, ntw = -(-oh // m_), -(-ow // m_)
-        # pad so that tiles of alpha with stride m_ cover all outputs
-        ph = (nth - 1) * m_ + a - (scn.h + 2 * scn.pad)
-        pw = (ntw - 1) * m_ + a - (scn.w + 2 * scn.pad)
-        xp = F.pad(xc, (scn.pad, scn.pad + max(pw, 0),
-                        scn.pad, scn.pad + max(ph, 0)))
-        pt = F.unfold(xp, (a, a), stride=m_)
-        d = pt.reshape(n, scn.c, a, a, nth, ntw)
-        V = torch.einsum("ai,ncijtu,bj->ncabtu", Bt, d, Bt)
-        Q = torch.einsum("mcab,ncabtu->nmabtu", U, V)
-        Y = torch.einsum("ap,nmabtu,bq->nmtpuq", A, Q, A)
-        y = Y.reshape(n, scn.m, nth * m_, ntw * m_)[:, :, :oh, :ow]
-        return _from_chw(y + packed["b"][:, None, None], l_out)
+        if l_in == "HWC":
+            xc = x.permute(0, 3, 1, 2)
+        else:
+            xc = _to_chw(x, l_in)
+        # (a^2, M, C) x (a^2, C, N*T)
+        y = wt.winograd_conv(xc, lambda v: torch.bmm(packed["w"], v),
+                             packed["b"], m_=m_, k=scn.k, pad=scn.pad,
+                             out_layout=out)
+        return y if out == l_out else _from_chw(y, l_out)
 
     return f
 
@@ -545,7 +541,10 @@ def _wino2d(scn: Scenario, m_: int, l_in: str, l_out: str):
 def _wino2d_prepare(m_: int):
     def prep(scn, w, b):
         A, G, Bt = winograd_matrices(m_, scn.k)
-        U = np.einsum("ar,mcrs,bs->mcab", G, w, G)
+        a = m_ + scn.k - 1
+        # (a^2, M, C): the batched product's left operand as it is stored
+        U = np.einsum("ar,mcrs,bs->abmc", G, w, G).reshape(a * a, scn.m,
+                                                          scn.c)
         return {"w": to_tensor(np.asarray(U, np.float32)),
                 "b": to_tensor(b)}
     return prep

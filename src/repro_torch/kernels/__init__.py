@@ -10,7 +10,10 @@ Each kernel lives in its own subpackage, at the reference's path:
 
 ``layout_transform`` and ``flash_attention`` are not primitives: the
 calibration sweep times them (``calibrate.sweep``), as the reference's
-sweep times its Pallas counterparts.
+sweep times its Pallas counterparts.  ``winograd_transform`` (the 2-D
+Winograd input and output transforms) is none either, and replaces no
+Pallas kernel: every 2-D Winograd primitive, the library's ``wino2d_*`` and
+the kernel ``pallas_wino_*``, runs it around its batched GEMM.
 
 ``register_pallas_primitives`` plugs the convolution kernels into the
 primitive registry as the ``pallas`` family, under the reference's five
@@ -28,7 +31,8 @@ import dataclasses
 import numpy as np
 
 __all__ = ["register_pallas_primitives", "kernel_variant", "kernel_libs",
-           "LAUNCH_COUNTER_OF", "expected_launches"]
+           "LAUNCH_COUNTER_OF", "expected_launches", "conv_launches",
+           "all_launches"]
 
 #: the launch counter (``common.count_launch``) behind each kernel
 #: primitive, and each tuned variant ``<name>@<params>`` of it: one launch
@@ -52,6 +56,33 @@ def expected_launches(sel):
     return want
 
 
+def conv_launches(name: str) -> dict:
+    """One conv's launches under primitive ``name`` (or a tuned variant
+    of it), by launch counter: its kernel's one (``LAUNCH_COUNTER_OF``),
+    and an input and an output Winograd transform for a 2-D Winograd
+    primitive (``wino2d_*``, ``pallas_wino_*``); {} for any other."""
+    from .winograd_transform.ops import COUNTER
+    want = {}
+    k = LAUNCH_COUNTER_OF.get(name.split("@")[0])
+    if k:
+        want[k] = 1
+    if name.startswith(("wino2d_", "pallas_wino_")):
+        want[COUNTER] = 2
+    return want
+
+
+def all_launches(sel):
+    """Every launch of one forward of selection ``sel``'s plan, by launch
+    counter: ``expected_launches``' kernel convs and the Winograd
+    transforms' two per 2-D Winograd conv."""
+    want = {}
+    for node in sel.net.conv_nodes():
+        name = sel.choices[node.id].primitive.name
+        for k, n in conv_launches(name).items():
+            want[k] = want.get(k, 0) + n
+    return want
+
+
 def kernel_libs():
     """Every CUDA library the kernels load (for ``common.build_all``)."""
     from .conv_direct.kernel import LIB as direct
@@ -59,7 +90,8 @@ def kernel_libs():
     from .layout_transform.kernel import LIB as layout
     from .matmul.kernel import LIB as matmul
     from .winograd_gemm.kernel import LIB as wino
-    return [matmul, wino, direct, layout, flash]
+    from .winograd_transform.kernel import LIB as transform
+    return [matmul, wino, direct, layout, flash, transform]
 
 
 def _fused_builder(name: str, pin=None):

@@ -111,20 +111,22 @@ def taps(net):
 
 def launches_of(sel, cn, mesh):
     """This rank's launches in one forward of the mesh executable ``cn``
-    of ``sel`` on the card: one per kernel conv, a pipeline stage's once
-    per microbatch and only its own."""
+    of ``sel`` on the card: one per kernel conv, and two Winograd
+    transforms per 2-D Winograd conv, a pipeline stage's once per
+    microbatch and only its own."""
     from repro_torch.core.plan import mesh_shape_dict
     from repro_torch.core.selection import Placement, pp_microbatches
-    from repro_torch.kernels import LAUNCH_COUNTER_OF
+    from repro_torch.kernels import conv_launches
     stages = mesh_shape_dict(mesh).get("stage", 1)
     reps = pp_microbatches(cn.batch, stages) if cn.pp_nodes else 1
     me = mesh.get_local_rank("stage") if cn.pp_nodes else 0
     want = {}
     for node in sel.net.conv_nodes():
         ch = sel.choices[node.id]
-        k = LAUNCH_COUNTER_OF.get(ch.primitive.name.split("@")[0])
-        if k and Placement.parse(ch.placement).stage == me:
-            want[k] = want.get(k, 0) + reps
+        if Placement.parse(ch.placement).stage != me:
+            continue
+        for k, n in conv_launches(ch.primitive.name).items():
+            want[k] = want.get(k, 0) + n * reps
     return want
 
 

@@ -29,7 +29,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import common, expected_launches
+from repro_torch.kernels import all_launches, common
 from repro_torch.kernels.conv_direct import (conv_direct, conv_direct_ref,
                                              conv_plan)
 from repro_torch.kernels.conv_im2col import conv_im2col
@@ -45,6 +45,10 @@ from repro_torch.kernels.matmul import (matmul, matmul_plan, matmul_ref,
 from repro_torch.kernels.matmul import kernel as mm_kernel
 from repro_torch.kernels.winograd_gemm import (bgemm_ref, conv_winograd,
                                                prepare_kernel, winograd_bgemm)
+from repro_torch.kernels.winograd_transform import (
+    PAIRS, input_transform_ref, output_transform_ref)
+from repro_torch.kernels.winograd_transform import LIB as WT_LIB
+from repro_torch.kernels.winograd_transform import ops as wt_ops
 
 
 def _data(seed, *shapes, scale=None):
@@ -524,6 +528,116 @@ torch.cuda.synchronize()
                     conv_direct_ref(x, w, b, **kw), 1e-3)
 
 
+#: the Winograd transforms' planes, (C, M, H, W): VGG-16's five widths with
+#: the net's channels, AlexNet's conv2, and ragged planes whose tiles
+#: overhang
+_WT_PLANES = {"vgg224": (64, 64, 224, 224), "vgg112": (128, 128, 112, 112),
+              "vgg56": (256, 256, 56, 56), "vgg28": (512, 512, 28, 28),
+              "vgg14": (512, 512, 14, 14), "alexnet_conv2": (96, 256, 27, 27),
+              "ragged13x9": (5, 7, 13, 9), "ragged7x7": (3, 4, 7, 7)}
+
+
+@pytest.mark.gpu
+class TestWinogradTransform:
+    """The input and output transforms against their plain einsums within
+    1e-5 of the largest plain magnitude: the same f32 arithmetic with the
+    same matrices, summed in another order."""
+
+    @staticmethod
+    def _hold(got, want):
+        assert got.shape == want.shape and got.is_contiguous()
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+
+    @pytest.mark.parametrize("mk", PAIRS, ids=lambda p: f"f{p[0]}x{p[1]}")
+    @pytest.mark.parametrize("plane", sorted(_WT_PLANES))
+    def test_against_the_plain_einsums(self, cuda, plane, mk):
+        """Every (m, k), CHW and HWC in and out, batch 1 and 16, the bias
+        on; one launch each."""
+        m_, k = mk
+        c, mo, h, w = _WT_PLANES[plane]
+        pad = k // 2
+        oh, ow = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+        t = -(-oh // m_) * -(-ow // m_)
+        for n in (1, 16):
+            x, q, b = (torch.from_numpy(a).to(cuda) for a in _data(
+                n + m_ + k, (n, c, h, w), ((m_ + k - 1) ** 2, mo, n * t),
+                (mo,)))
+            want = input_transform_ref(x, m_, k, pad)
+            for li in ("CHW", "HWC"):
+                xv = x if li == "CHW" else \
+                    x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+                common.reset_launch_counts()
+                got = wt_ops.input_transform(xv, m_=m_, k=k, pad=pad)
+                assert common.launch_counts() == {"winograd_transform": 1}
+                self._hold(got, want)
+            for lo in ("CHW", "HWC"):
+                common.reset_launch_counts()
+                got = wt_ops.output_transform(q, b, m_=m_, k=k, n=n, oh=oh,
+                                              ow=ow, out_layout=lo)
+                assert common.launch_counts() == {"winograd_transform": 1}
+                self._hold(got, output_transform_ref(q, b, m_, k, n, oh, ow,
+                                                     lo))
+
+    @pytest.mark.parametrize("name", ["wino2d_f6x3_chw",
+                                      "pallas_wino_f4x3_chw"])
+    @pytest.mark.parametrize("batch", [1, 4])
+    def test_primitive_against_conv2d(self, cuda, name, batch):
+        """The whole convolution, CHW and HWC in and out, against
+        ``F.conv2d`` with TF32 off (the fixture), within 1e-3 of its
+        largest magnitude: two transforms and one GEMM a call."""
+        from repro_torch.core.primitives import registry
+        from repro_torch.core.scenario import Scenario
+        prim = next(p for p in registry() if p.name == name)
+        scn = Scenario(c=64, h=56, w=56, stride=1, k=3, m=96)
+        x, w, b = _data(15 + batch, (batch, 64, 56, 56), (96, 64, 3, 3),
+                        (96,), scale=0.05)
+        packed = {k_: v.to(cuda) for k_, v in prim.prepare(scn, w, b).items()}
+        xt = torch.from_numpy(x).to(cuda)
+        want = F.conv2d(xt, torch.from_numpy(w).to(cuda),
+                        torch.from_numpy(b).to(cuda), 1, 1)
+        gemm = {"winograd_gemm": 1} if name.startswith("pallas") else {}
+        for li in ("CHW", "HWC"):
+            xin = xt if li == "CHW" else xt.permute(0, 2, 3, 1).contiguous()
+            for lo in ("CHW", "HWC"):
+                common.reset_launch_counts()
+                got = prim.make_fused(scn, li, lo)(xin, packed)
+                assert common.launch_counts() == {"winograd_transform": 2,
+                                                  **gemm}
+                if lo == "HWC":
+                    got = got.permute(0, 3, 1, 2)
+                err = float((got - want).abs().max())
+                assert err <= 1e-3 * float(want.abs().max()), (li, lo, err)
+
+    def test_vgg16_b1_graph_replay_counts(self, cuda):
+        """VGG-16's batch-1 PBQP plan (the ``vgg16.b1`` cell's): 8 convs
+        on ``wino2d_f6x3_chw`` and 4 on K3, so a replay counts 24
+        transforms and 4 K3 GEMMs, and answers with the eager walk's
+        bits."""
+        from repro_torch.convnets import vgg
+        from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+        from repro_torch.core.plan import compile_plan
+        from repro_torch.core.selection import select_pbqp
+        net = vgg("D", 1.0)
+        sel = select_pbqp(net, AnalyticCostModel(H100_SPEC,
+                                                 include_kernels=True))
+        params = net.init_params(0)
+        x = np.random.default_rng(22).normal(
+            size=net.nodes["data"].out_shape).astype(np.float32)
+        graph = compile_plan(sel, params)
+        want = compile_plan(sel, params, jit=False)(x)
+        graph(x)
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        got = graph(x)
+        torch.cuda.synchronize()
+        counts = common.launch_counts()
+        assert counts == {"winograd_gemm": 4, "winograd_transform": 24}
+        assert counts == all_launches(sel) == graph.capture_launches
+        for k_ in want:
+            assert torch.equal(got[k_], want[k_]), k_
+
+
 # ----------------------------------------------------------------------
 # compile_plan(jit=True): the forward captured as a CUDA graph, and the
 # conv PlanServer serving such graphs
@@ -556,7 +670,7 @@ class TestCapturedForward:
         graph = compile_plan(sel, params, batch=batch)
         assert graph.jit and graph.graph is None
         want = eager(x)
-        once = expected_launches(sel)
+        once = all_launches(sel)
         torch.cuda.synchronize()
         common.reset_launch_counts()
         got = graph(x)
@@ -717,7 +831,7 @@ class TestServingGraphs:
                 assert np.array_equal(out["prob"], want[i % 8])
             for n in (2, 4):
                 cnet = srv.compiled_for(shape, n)
-                assert cnet.capture_launches == expected_launches(cnet.sel)
+                assert cnet.capture_launches == all_launches(cnet.sel)
                 e = compile_plan(cnet.sel, params, batch=n, jit=False)
                 want_n = e(xs[:n])["prob"].cpu().numpy()
                 got = srv.infer_batch(list(xs[:n]))
@@ -875,14 +989,16 @@ class TestServingSpans:
 # tuned variants: every launch space's configurations, pinned
 # ----------------------------------------------------------------------
 class _Spy:
-    """The arguments of every C entry called inside the block."""
+    """The arguments of every C entry called inside the block, but the
+    Winograd transforms' (around a pinned GEMM, pinning nothing)."""
 
     def __init__(self, monkeypatch):
         self.calls = []
         orig = common.KernelLib.call
 
         def call(lib, entry, *args):
-            self.calls.append((entry, args))
+            if lib is not WT_LIB:
+                self.calls.append((entry, args))
             return orig(lib, entry, *args)
         monkeypatch.setattr(common.KernelLib, "call", call)
 
@@ -1038,7 +1154,7 @@ class TestInstrumentedNet:
         torch.cuda.synchronize()
         common.reset_launch_counts()
         outs, tm = inst(x)
-        assert common.launch_counts() == expected_launches(sel)
+        assert common.launch_counts() == all_launches(sel)
         for k in want:
             assert torch.equal(outs[k], want[k]), k
         assert {n.id for n in sel.net.conv_nodes()} <= set(tm["node"])

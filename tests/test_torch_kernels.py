@@ -425,7 +425,8 @@ class TestDispatch:
         libs = kernel_libs()
         assert {lib.source.name for lib in libs} == {
             "matmul.cu", "winograd_gemm.cu", "conv_direct.cu",
-            "layout_transform.cu", "flash_attention.cu"}
+            "layout_transform.cu", "flash_attention.cu",
+            "winograd_transform.cu"}
         for lib in libs:
             assert lib.source.exists()
             assert lib.so_path.parent == common.BUILD_DIR

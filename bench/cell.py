@@ -5,8 +5,10 @@ metric is a data file or a reader found by its name:
 
 - ``BENCHMARK.json`` names the cell, its configuration and its traffic;
 - ``bench/configs/<config>.json``: the network (by the program's name and
-  as a list of layer sizes), input shape, dtype, selector, bucket policy
-  and whether executables are CUDA graphs;
+  as a list of named layers with their sizes, which may branch and join:
+  ``work.layers``), input shape, dtype, selector, bucket policy, whether
+  executables are CUDA graphs, and the scale at which the CPU tests run
+  it (``cpu_scale``; a run ignores it);
 - ``bench/traffic/<traffic>.json``: the entry the clients drive
   (``infer``, ``infer_batch`` or ``submit``), clients, images per call,
   batch buckets, warm-up requests and which images the check samples;
@@ -19,6 +21,7 @@ from __future__ import annotations
 import gc
 import importlib
 import importlib.util
+import itertools
 import json
 import pathlib
 import sys
@@ -43,7 +46,8 @@ PROFILE_S = 3.0
 GRACE_S = 60.0
 #: the port's kernel libraries behind each launch counter
 LIB_OF_COUNTER = {"conv_direct": "conv_direct", "conv_im2col": "matmul",
-                  "winograd_gemm": "winograd_gemm", "matmul": "matmul"}
+                  "winograd_gemm": "winograd_gemm", "matmul": "matmul",
+                  "winograd_transform": "winograd_transform"}
 
 
 @dataclass
@@ -82,16 +86,17 @@ def reader(name: str) -> Callable:
     return mod.read
 
 
-def arch(layers: List[Dict]) -> List[tuple]:
-    """A layer list's weighted layers, as the program's net must have
-    them."""
+def arch(layers: List["work.Layer"]) -> List[tuple]:
+    """A network's weighted layers, each conv with the (C, H, W) it
+    takes, as the program's net must have them."""
     out = []
-    for s in layers:
-        if s["op"] == "conv":
-            out.append((s["name"], s["m"], s["k"], s.get("stride", 1),
-                        s.get("pad", 0)))
-        elif s["op"] == "fc":
-            out.append((s["name"], s["features"]))
+    for l in layers:
+        s = l.spec
+        if l.op == "conv":
+            out.append((l.name, s["m"], s["k"], s.get("stride", 1),
+                        s.get("pad", 0), l.in_shape))
+        elif l.op == "fc":
+            out.append((l.name, s["features"]))
     return out
 
 
@@ -101,10 +106,20 @@ def program_arch(net) -> List[tuple]:
         node = net.nodes[nid]
         if node.kind == "conv":
             s = node.scn
-            out.append((nid, s.m, s.k, s.stride, s.pad))
+            out.append((nid, s.m, s.k, s.stride, s.pad, (s.c, s.h, s.w)))
         elif node.kind == "op" and node.op.name.startswith("fc"):
             out.append((nid, node.out_shape[0]))
     return out
+
+
+def check_arch(layers: List["work.Layer"], net) -> None:
+    """Raises naming the first weighted layer where the configuration's
+    network and the program's differ."""
+    mine, theirs = arch(layers), program_arch(net)
+    for a, b in itertools.zip_longest(mine, theirs):
+        if a != b:
+            raise RuntimeError(f"the configuration's layer {a} is the "
+                               f"program's {net.name} layer {b}")
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, *,
@@ -123,7 +138,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
 
     from repro_torch.convnets import NETWORKS
     from repro_torch.core import costs
-    from repro_torch.kernels import LAUNCH_COUNTER_OF, expected_launches
+    from repro_torch.kernels import (LAUNCH_COUNTER_OF, conv_launches,
+                                     expected_launches)
     from repro_torch.kernels.common import build_all
     from repro_torch.obs import trace as obs_trace
     from repro_torch.serving import (BucketPolicy, ContinuousScheduler,
@@ -132,13 +148,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
 
     dev = torch.device(device)
     net = NETWORKS[cfg["network"]](scale)
-    if program_arch(net) != arch(cfg["layers"]):
-        raise RuntimeError(f"the program's {cfg['network']} is not the "
-                           f"configuration's network")
     in_shape = tuple(net.nodes[net.order[0]].out_shape)
     if scale == 1.0 and list(in_shape) != cfg["input"]:
         raise RuntimeError(f"input {in_shape} is not {cfg['input']}")
     layers = work.layers(cfg["layers"], in_shape)
+    check_arch(layers, net)
     peak = work.peak_of(torch.cuda.get_device_name(dev)) \
         if dev.type == "cuda" else None
 
@@ -162,8 +176,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         t = time.perf_counter()
         prims = {c.primitive.name.split("@")[0]
                  for c in sel.choices.values() if c.primitive is not None}
-        libs = sorted({LIB_OF_COUNTER[LAUNCH_COUNTER_OF[p]]
-                       for p in prims if p in LAUNCH_COUNTER_OF})
+        libs = sorted({LIB_OF_COUNTER[c] for p in prims
+                       for c in conv_launches(p)})
         if dev.type == "cuda":
             mods = [importlib.import_module(f"repro_torch.kernels.{m}.kernel")
                     for m in libs]

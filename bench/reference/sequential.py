@@ -1,5 +1,11 @@
-"""Plain PyTorch forward of a sequential CNN described by a configuration's
-``layers`` list, and its weights drawn again from the seed.
+"""Plain PyTorch forward of a CNN described by a configuration's ``layers``
+list, and its weights drawn again from the seed.
+
+The list is a graph of named layers: an entry takes the outputs that its
+``inputs`` names, or else the entry before it's (``bench/work.py``'s
+rule, whose ``layers`` walks the shapes for both functions here), so a
+list without ``inputs`` is a sequential network and one with them may
+branch and join, as GoogLeNet's inception modules do.
 
 The reference that decides ``correct``: float32 with TF32 off for
 cuBLAS and cuDNN (``precision("f32")``), one library call per layer, no
@@ -21,36 +27,31 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import work
+
 
 def init_params(layers: Sequence[Dict], in_shape: Sequence[int],
                 seed: int) -> List[Dict[str, np.ndarray]]:
-    """He-initialised weights, drawn in layer order from one numpy
+    """He-initialised weights, drawn in list order from one numpy
     generator seeded with ``seed``: a conv's weights (M, C, K, K) from
     N(0, 2 / (C K K)) and its bias from N(0, 0.01); an fc layer's weights
     (inputs, features) from N(0, 2 / inputs) and a zero bias.  Layers
     without weights draw nothing."""
     rng = np.random.default_rng(seed)
-    c, h, w = (int(v) for v in in_shape)
     params: List[Dict[str, np.ndarray]] = []
-    for s in layers:
-        p: Dict[str, np.ndarray] = {}
-        if s["op"] == "conv":
-            k, m = s["k"], s["m"]
+    for l in work.layers(layers, in_shape):
+        s, p = l.spec, {}
+        if l.op == "conv":
+            c, k, m = l.in_shape[0], s["k"], s["m"]
             std = float(np.sqrt(2.0 / (c * k * k)))
             p["w"] = rng.normal(0, std, size=(m, c, k, k)).astype(np.float32)
             p["b"] = rng.normal(0, 0.01, size=(m,)).astype(np.float32)
-            st, pad = s.get("stride", 1), s.get("pad", 0)
-            c, h, w = m, (h + 2 * pad - k) // st + 1, (w + 2 * pad - k) // st + 1
-        elif s["op"] == "fc":
-            n_in = c * h * w
+        elif l.op == "fc":
+            n_in = math.prod(l.in_shape)
             std = float(np.sqrt(2.0 / n_in))
             p["w"] = rng.normal(0, std, size=(n_in, s["features"])) \
                 .astype(np.float32)
             p["b"] = np.zeros((s["features"],), np.float32)
-            c, h, w = s["features"], 1, 1
-        elif s["op"] == "maxpool":
-            h, w = (h - s["k"]) // s["stride"] + 1, \
-                (w - s["k"]) // s["stride"] + 1
         params.append(p)
     return params
 
@@ -79,28 +80,38 @@ def precision(name: str):
 
 def forward(layers: Sequence[Dict], params: List[Dict[str, torch.Tensor]],
             x: torch.Tensor) -> torch.Tensor:
-    """Outputs (N, features) of images ``x`` (N, C, H, W)."""
-    for s, p in zip(layers, params):
-        op = s["op"]
+    """Outputs (N, features) of images ``x`` (N, C, H, W): the last
+    entry's.  An output is dropped after the last entry that takes it."""
+    ls = work.layers(layers, x.shape[1:])
+    last = {n: i for i, l in enumerate(ls) for n in l.inputs}
+    outs: Dict[str, torch.Tensor] = {}
+    for i, (l, p) in enumerate(zip(ls, params)):
+        s, op = l.spec, l.op
+        xs = [outs[n] for n in l.inputs] or [x]
+        y = torch.cat(xs, dim=1) if op == "concat" else xs[0]
         if op == "conv":
-            x = F.conv2d(x, p["w"], p["b"], stride=s.get("stride", 1),
+            y = F.conv2d(y, p["w"], p["b"], stride=s.get("stride", 1),
                          padding=s.get("pad", 0))
         elif op == "relu":
-            x = F.relu(x)
+            y = F.relu(y)
         elif op == "lrn":
-            x = F.local_response_norm(x, s["size"], alpha=s["alpha"],
+            y = F.local_response_norm(y, s["size"], alpha=s["alpha"],
                                       beta=s["beta"], k=s["bias"])
-        elif op == "maxpool":
-            x = F.max_pool2d(x, s["k"], s["stride"])
+        elif op == "maxpool":  # padding reads as -inf
+            y = F.max_pool2d(y, s["k"], s["stride"], s.get("pad", 0))
+        elif op == "gap":
+            y = y.mean(dim=(2, 3), keepdim=True)
         elif op == "fc":
-            x = x.flatten(1) @ p["w"] + p["b"]
+            y = y.flatten(1) @ p["w"] + p["b"]
             if s.get("relu"):
-                x = F.relu(x)
+                y = F.relu(y)
         elif op == "softmax":
-            x = torch.softmax(x.flatten(1), dim=1)
-        else:
-            raise ValueError(f"unknown layer op {op!r}")
-    return x.flatten(1)
+            y = torch.softmax(y.flatten(1), dim=1)
+        outs[l.name] = y
+        for n in l.inputs:
+            if last[n] == i:
+                del outs[n]
+    return y.flatten(1)
 
 
 def run(layers: Sequence[Dict], params: List[Dict[str, torch.Tensor]],

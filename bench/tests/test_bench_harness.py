@@ -18,8 +18,10 @@ sys.path.insert(0, str(BENCH))
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in SPEC["workloads"]]
-#: per configuration, the smallest scale whose every layer keeps a pixel
-SCALE = {"vgg16": 0.15, "alexnet": 0.3}
+#: each configuration's file by its name; its ``cpu_scale`` is the
+#: smallest scale whose every layer keeps a pixel
+CONFIGS = {c["name"]: json.loads((ROOT / c["file"]).read_text())
+           for c in SPEC["configs"]}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
@@ -29,14 +31,14 @@ def metrics_of(cell, kind):
 
 
 def scale_of(cell):
-    return SCALE[next(w["config"] for w in SPEC["workloads"]
-                      if w["name"] == cell)]
+    return CONFIGS[next(w["config"] for w in SPEC["workloads"]
+                        if w["name"] == cell)]["cpu_scale"]
 
 
 def test_every_named_file_is_there():
     for c in SPEC["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["name"] == c["name"]
+        assert cfg["name"] == c["name"] and 0 < cfg["cpu_scale"] <= 1
         assert (BENCH / "reference" / f"{cfg['reference']}.py").is_file()
     for w in SPEC["workloads"]:
         assert (BENCH / "traffic" / f"{w['traffic']}.json").is_file()
@@ -120,7 +122,7 @@ def test_the_scheduler_traffic_runs_correct(monkeypatch):
     monkeypatch.setattr(load, "sampled", lambda seed, j, every: True)
     out = cell.run("alexnet.b1", 4_000_000_777, 2.0, False,
                    t_start=time.perf_counter(), device="cpu",
-                   scale=SCALE["alexnet"])
+                   scale=CONFIGS["alexnet"]["cpu_scale"])
     assert out["correct"] is True and out["failed"] == 0
     assert out["attempted"] >= 64 and out["compared_images"] > 0
 
@@ -146,15 +148,11 @@ def test_the_reference_imports_nothing_of_the_program():
     assert "repro_torch" not in mods and "'repro'" not in mods
 
 
-@pytest.mark.parametrize("cfg_name", ["alexnet", "vgg16"])
-def test_the_reference_draws_the_programs_weights(cfg_name):
-    """The reference's frozen He initialisation gives the program's
-    weights bit for bit, without reading them."""
+def assert_draws_the_programs_weights(cfg, scale):
     sys.path.insert(0, str(ROOT / "src"))
     from reference import sequential
     from repro_torch.convnets import NETWORKS
-    cfg = json.loads((BENCH / "configs" / f"{cfg_name}.json").read_text())
-    net = NETWORKS[cfg["network"]](SCALE[cfg_name])
+    net = NETWORKS[cfg["network"]](scale)
     shape = net.nodes[net.order[0]].out_shape
     theirs = net.init_params(2 ** 31 + 7)
     mine = sequential.init_params(cfg["layers"], shape, 2 ** 31 + 7)
@@ -163,6 +161,14 @@ def test_the_reference_draws_the_programs_weights(cfg_name):
     for nid, p in theirs.items():
         for k, v in p.items():
             assert np.array_equal(named[nid][k], v), (nid, k)
+
+
+@pytest.mark.parametrize("cfg_name", sorted(CONFIGS))
+def test_the_reference_draws_the_programs_weights(cfg_name):
+    """The reference's frozen He initialisation gives the program's
+    weights bit for bit, without reading them."""
+    cfg = CONFIGS[cfg_name]
+    assert_draws_the_programs_weights(cfg, cfg["cpu_scale"])
 
 
 def test_the_image_stream_is_the_seeds():

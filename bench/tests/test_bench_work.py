@@ -92,3 +92,91 @@ def test_bound_is_the_larger_of_flops_and_bytes():
 def test_peak_table():
     assert work.peak_of("NVIDIA H100 80GB HBM3")["flops"] == 67e12
     assert work.peak_of("a card not in the table") is None
+
+
+@pytest.mark.parametrize("name", ["alexnet", "vgg16"])
+def test_a_list_without_inputs_is_a_chain(name):
+    layers = net(name)
+    assert layers[0].inputs == ()
+    for a, b in zip(layers, layers[1:]):
+        assert b.inputs == (a.name,) and b.in_shape == a.out_shape
+
+
+#: two branches off a ReLU of the image, joined on the channels, a padded
+#: pool, the global average pool and a classifier
+DAG = [
+    {"op": "relu", "name": "stem"},
+    {"op": "conv", "name": "left", "m": 2, "k": 1, "inputs": ["stem"]},
+    {"op": "maxpool", "name": "rpool", "k": 3, "stride": 1, "pad": 1,
+     "inputs": ["stem"]},
+    {"op": "conv", "name": "right", "m": 3, "k": 1},
+    {"op": "concat", "name": "join", "inputs": ["left", "right"]},
+    {"op": "maxpool", "name": "down", "k": 3, "stride": 2, "pad": 1},
+    {"op": "gap", "name": "gap"},
+    {"op": "fc", "name": "fc", "features": 3},
+    {"op": "softmax", "name": "prob"},
+]
+
+
+def test_a_branching_list():
+    layers = by_name(work.layers(DAG, (4, 8, 8)))
+    assert {n: (l.inputs, l.in_shape, l.out_shape)
+            for n, l in layers.items()} == {
+        "stem": ((), (4, 8, 8), (4, 8, 8)),
+        "left": (("stem",), (4, 8, 8), (2, 8, 8)),
+        "rpool": (("stem",), (4, 8, 8), (4, 8, 8)),
+        "right": (("rpool",), (4, 8, 8), (3, 8, 8)),
+        "join": (("left", "right"), (5, 8, 8), (5, 8, 8)),
+        # (8 + 2 - 3) // 2 + 1; unpadded it would be 3
+        "down": (("join",), (5, 8, 8), (5, 4, 4)),
+        "gap": (("down",), (5, 4, 4), (5, 1, 1)),
+        "fc": (("gap",), (5, 1, 1), (3, 1, 1)),
+        "prob": (("fc",), (3, 1, 1), (3, 1, 1)),
+    }
+    # 1x1 convolutions: direct is the fewest; 64 outputs x C x M
+    assert (layers["left"].least, layers["left"].params) == (64 * 4 * 2, 10)
+    assert (layers["right"].least, layers["right"].params) == (64 * 4 * 3, 15)
+    assert (layers["fc"].least, layers["fc"].params) == (15, 18)
+    assert work.totals(layers.values()) == {"direct": 512 + 768 + 15,
+                                            "least": 512 + 768 + 15,
+                                            "params": 10 + 15 + 18}
+    assert all(layers[n].bytes_at(2) == 0 for n in ("join", "down", "gap"))
+
+
+@pytest.mark.parametrize("bad, says", [
+    ({"op": "relu", "name": "r", "inputs": ["nowhere"]}, "'nowhere'"),
+    ({"op": "relu", "name": "r", "inputs": ["later"]}, "'later'"),
+    ({"op": "concat", "name": "r", "inputs": ["stem", "down"]}, "one plane"),
+    ({"op": "concat", "name": "r", "inputs": ["stem"]}, "two or more"),
+    ({"op": "relu", "name": "r", "inputs": ["stem", "down"]}, "one input"),
+    ({"op": "dropout", "name": "r"}, "unknown layer op 'dropout'"),
+    ({"op": "relu", "name": "down"}, "an earlier layer"),
+])
+def test_a_bad_entry_is_refused_by_name(bad, says):
+    spec = DAG[:6] + [bad, {"op": "relu", "name": "later"}]
+    with pytest.raises(ValueError, match=f"layer '{bad['name']}'") as e:
+        work.layers(spec, (4, 8, 8))
+    assert says in str(e.value)
+
+
+def test_the_reference_follows_the_branches():
+    """The reference on the branching list against the same library calls
+    written out by hand: a pool's padding reads as -inf."""
+    import torch
+    import torch.nn.functional as F
+    from reference import sequential
+    x = torch.randn(2, 4, 8, 8, generator=torch.Generator().manual_seed(3))
+    params = sequential.to_device(sequential.init_params(DAG, (4, 8, 8), 11),
+                                  "cpu")
+    p = dict(zip([s["name"] for s in DAG], params))
+    stem = F.relu(x)
+    left = F.conv2d(stem, p["left"]["w"], p["left"]["b"])
+    right = F.conv2d(F.max_pool2d(stem, 3, 1, 1), p["right"]["w"],
+                     p["right"]["b"])
+    y = F.max_pool2d(torch.cat([left, right], 1), 3, 2, 1)
+    y = y.mean(dim=(2, 3)) @ p["fc"]["w"] + p["fc"]["b"]
+    want = torch.softmax(y, dim=1)
+    got = sequential.forward(DAG, params, x)
+    assert torch.equal(got, want)
+    assert p["right"]["w"].shape == (3, 4, 1, 1)
+    assert p["fc"]["w"].shape == (5, 3)

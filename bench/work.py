@@ -18,7 +18,8 @@ library can build reads above its peak:
   transforms of the 1-D variant (stride 1).
 
 The transforms themselves are not counted.  Fully connected layers count
-as dense products; pooling, activations, LRN and softmax count nothing.
+as dense products; pooling, activations, LRN, softmax and channel
+concatenation count nothing.
 Flops are twice the multiply-adds.  Bytes are each input, weight and
 output read or written once per call.  Plain Python: no import of the
 program.
@@ -42,7 +43,8 @@ PEAKS_FILE = pathlib.Path(__file__).resolve().parent / "peaks.json"
 @dataclass(frozen=True)
 class Layer:
     """One layer of a network with its shapes: ``in_shape`` and
-    ``out_shape`` are per image, (C, H, W)."""
+    ``out_shape`` are per image, (C, H, W); a concat's ``in_shape`` is
+    its inputs' taken together, as its output."""
     name: str
     op: str
     in_shape: Tuple[int, int, int]
@@ -55,6 +57,8 @@ class Layer:
     family: str = ""
     #: parameters (weights and biases)
     params: int = 0
+    #: the names of the layers whose outputs it takes; () for the image
+    inputs: Tuple[str, ...] = ()
 
     def bytes_at(self, n: int) -> int:
         """Bytes of one call at batch ``n``: input, weights, output."""
@@ -92,11 +96,43 @@ def conv_macs(c: int, h: int, w: int, m: int, k: int, stride: int,
 
 def layers(spec: Sequence[Dict], in_shape: Sequence[int]) -> List[Layer]:
     """Each layer of a configuration's ``layers`` list with its shapes and
-    counts, from the input shape (C, H, W)."""
-    shape = tuple(int(v) for v in in_shape)
+    counts, from the input shape (C, H, W).
+
+    An entry takes the outputs of the earlier entries that its
+    ``"inputs"`` names; without the key, the output of the entry before
+    it (the first entry: the image), so a list without ``inputs`` is a
+    chain.  A ``concat`` joins two or more inputs of one plane along the
+    channels; every other op takes one input.  An entry with an unknown
+    op, a name taken before, an input that is no earlier entry's name, or
+    inputs that its op cannot take raises ``ValueError`` naming it."""
+    image = tuple(int(v) for v in in_shape)
     out: List[Layer] = []
+    shapes: Dict[str, Tuple[int, int, int]] = {}
     for i, s in enumerate(spec):
         op, name = s["op"], s.get("name", f"{s['op']}{i}")
+        if name in shapes:
+            raise ValueError(f"layer {name!r}: the name of an earlier layer")
+        if "inputs" in s:
+            inputs = tuple(s["inputs"])
+            for x in inputs:
+                if x not in shapes:
+                    raise ValueError(f"layer {name!r}: input {x!r} is no "
+                                     f"earlier layer's name")
+            ins = [shapes[x] for x in inputs]
+        elif out:
+            inputs, ins = (out[-1].name,), [out[-1].out_shape]
+        else:
+            inputs, ins = (), [image]
+        if op == "concat":
+            if len(ins) < 2 or len({x[1:] for x in ins}) != 1:
+                raise ValueError(f"layer {name!r}: concat takes two or more "
+                                 f"inputs of one plane, not {ins}")
+            shape = (sum(x[0] for x in ins),) + ins[0][1:]
+        elif len(ins) != 1:
+            raise ValueError(f"layer {name!r}: {op} takes one input, "
+                             f"not {len(ins)}")
+        else:
+            shape = ins[0]
         c, h, w = shape
         direct = least = params = 0
         family = ""
@@ -115,15 +151,17 @@ def layers(spec: Sequence[Dict], in_shape: Sequence[int]) -> List[Layer]:
             family = "dense"
             params = n_in * f + f
         elif op == "maxpool":
-            k, st = s["k"], s["stride"]
-            new = (c, (h - k) // st + 1, (w - k) // st + 1)
-        elif op in ("relu", "lrn", "softmax"):
+            k, st, p = s["k"], s["stride"], s.get("pad", 0)
+            new = (c, conv_out(h, k, st, p), conv_out(w, k, st, p))
+        elif op == "gap":
+            new = (c, 1, 1)
+        elif op in ("relu", "lrn", "softmax", "concat"):
             new = shape
         else:
-            raise ValueError(f"unknown layer op {op!r}")
+            raise ValueError(f"layer {name!r}: unknown layer op {op!r}")
         out.append(Layer(name, op, shape, new, dict(s), direct, least,
-                         family, params))
-        shape = new
+                         family, params, inputs))
+        shapes[name] = new
     return out
 
 

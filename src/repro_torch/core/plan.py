@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels import expected_launches
 from ..kernels.common import (add_launches, recording_launches,
                               resolve_device, true_f32)
 from ..obs.metrics import default_registry
@@ -63,7 +64,11 @@ from .primitives import convert_layout
 from .selection import Placement, SelectionResult, pp_microbatches
 
 __all__ = ["compile_plan", "CompiledNet", "CapturedForward", "measure",
-           "compile_count", "params_from_numpy", "mesh_shape_dict"]
+           "compile_count", "params_from_numpy", "mesh_shape_dict",
+           "layout_copies"]
+
+#: bytes of an activation element: every executable computes in float32
+F32_BYTES = 4
 
 
 def mesh_shape_dict(mesh) -> Dict[str, int]:
@@ -230,6 +235,23 @@ class CompiledNet:
     tp_nodes: int = 0
     #: nodes realized as pipeline stages over the mesh's stage axis
     pp_nodes: int = 0
+    #: one forward's copies outside the convs (:func:`layout_copies`):
+    #: concat nodes and the bytes they read and write, non-identity
+    #: layout conversion steps and the bytes they read and write
+    joins: int = 0
+    join_bytes: int = 0
+    conversion_steps: int = 0
+    conversion_bytes: int = 0
+    #: kernel launches of one forward, by launch counter
+    #: (``expected_launches``)
+    launches: Optional[Dict[str, int]] = None
+    #: the selection's predicted cost of one forward, ms
+    predicted_ms: float = 0.0
+
+    @property
+    def layout_copy_bytes(self) -> int:
+        """Bytes one forward's joins and layout conversions move."""
+        return self.join_bytes + self.conversion_bytes
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The eager walk on a device tensor (TF32 off)."""
@@ -459,18 +481,45 @@ def compile_plan(sel: SelectionResult, raw_params: Dict[str, Dict],
         # {dp, rep} program, its explicit tp walker
         mode = "tp_shard_map" if tp_nodes else "shard_map" \
             if dp_nodes == len(net.order) and d_mesh > 1 else "gspmd"
+    plan_counts = dict(layout_copies(sel, out_layouts, batch),
+                       launches=expected_launches(sel),
+                       predicted_ms=1e3 * float(sel.predicted_cost))
     cnet = CompiledNet(sel, fn, packed, dev,
                        build_s=time.perf_counter() - t0, batch=batch,
                        fused_edges=len(fusions), makers=makers,
                        out_layouts=out_layouts, jit=jit, mesh=mesh,
                        dp_nodes=dp_nodes, mesh_mode=mode,
-                       tp_nodes=tp_nodes, pp_nodes=pp_nodes)
+                       tp_nodes=tp_nodes, pp_nodes=pp_nodes, **plan_counts)
     get_tracer().emit("compile", t0, time.perf_counter(),
                       nodes=len(net.order), batch=batch,
                       fused_edges=cnet.fused_edges, mesh_mode=mode,
                       dp_nodes=dp_nodes, tp_nodes=tp_nodes,
-                      pp_nodes=pp_nodes)
+                      pp_nodes=pp_nodes, **plan_counts)
     return cnet
+
+
+def layout_copies(sel: SelectionResult, out_layouts: Dict[str, str],
+                  batch: int) -> Dict[str, int]:
+    """What one forward at ``batch`` of ``sel``'s plan copies outside its
+    convs: the concat nodes (``joins``) and the bytes they read and
+    write, and the non-identity ``convert_layout`` steps the plan wires
+    (each edge's chain, once per edge, and each node of ``out_layouts``
+    converted from its layout to CHW) and the bytes they read and write.
+    Every element is read once and written once."""
+    net = sel.net
+
+    def moved(nid: str) -> int:
+        return 2 * F32_BYTES * batch * int(np.prod(net.nodes[nid].out_shape))
+
+    joins = [nid for nid in net.order if net.nodes[nid].kind == "op"
+             and net.nodes[nid].op.name == "concat"]
+    # the node whose value each step converts
+    steps = [src for (src, _), chain in sel.conversions.items()
+             for a, b in zip(chain, chain[1:]) if a != b]
+    steps += [nid for nid, lay in out_layouts.items() if lay != "CHW"]
+    return {"joins": len(joins), "join_bytes": sum(map(moved, joins)),
+            "conversion_steps": len(steps),
+            "conversion_bytes": sum(map(moved, steps))}
 
 
 def _image_walker(sel: SelectionResult, net: Net,

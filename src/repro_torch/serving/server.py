@@ -189,6 +189,10 @@ class PlanServer:
         self.params_seed = params_seed
         self.jit = jit
         self.counters = ServingCounters()
+        #: bytes the executed forwards' joins and layout conversions
+        #: moved (``CompiledNet.layout_copy_bytes`` per forward)
+        self._layout_copies = self.counters.registry.counter(
+            "layout_copy_bytes")
         # --- reliability layer (docs/reliability.md) ---
         self.fault_injector = fault_injector
         self.quarantine = quarantine if quarantine is not None \
@@ -704,6 +708,7 @@ class PlanServer:
                        for nid, v in out.items()}
             self.counters.add(_bucket=bkey, requests=1,
                               execute_s=time.perf_counter() - t0)
+            self._layout_copies.add(cnet.layout_copy_bytes)
             return out
 
     def infer_batch(self, xs: Sequence[np.ndarray]
@@ -775,6 +780,7 @@ class PlanServer:
             self.counters.add(_bucket=bkey, batch_calls=1,
                               coalesced=len(chunk) - 1,
                               execute_s=time.perf_counter() - t0)
+            self._layout_copies.add(cnet.layout_copy_bytes)
             with span("crop"):
                 for row, i in enumerate(chunk):
                     expected = self._expected_out_shapes(imgs[i].shape)
@@ -846,6 +852,14 @@ class PlanServer:
         #: histogram-backed latency percentiles per phase — entries
         #: like "execute[bucket=8x3x32x32]" split them per batch bucket
         d["phases"] = self.counters.phase_quantiles()
+        d["layout_copy_bytes"] = self._layout_copies.value
+        #: each live executable's plan by its bucket: what one forward
+        #: copies outside the convs, its kernel launches and the
+        #: selection's predicted ms (``CompiledNet``'s fields)
+        with self._lock:
+            live = list(self._compiled._d.items())
+        d["plans"] = {bucket_key(pkey[:3], pkey[3]): _plan_stats(cnet)
+                      for pkey, cnet in live}
         return d
 
     def metrics_text(self) -> str:
@@ -869,6 +883,15 @@ class _Escape(BaseException):
     """Carries a failure that must reach the caller past
     :func:`~repro_torch.reliability.retry_call`, which retries every
     ``Exception``; ``args[0]`` is the failure."""
+
+
+def _plan_stats(cnet: CompiledNet) -> Dict:
+    return {"batch": cnet.batch, "joins": cnet.joins,
+            "join_bytes": cnet.join_bytes,
+            "conversion_steps": cnet.conversion_steps,
+            "conversion_bytes": cnet.conversion_bytes,
+            "launches": dict(cnet.launches or {}),
+            "predicted_ms": cnet.predicted_ms}
 
 
 def _to_host(outs) -> Dict[str, np.ndarray]:

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import gc
 import hashlib
+import itertools
 import threading
 import time
 from dataclasses import dataclass
@@ -118,8 +119,32 @@ def params_from_numpy(raw_params: Dict[str, Dict[str, np.ndarray]],
 _CAPTURE_LOCK = threading.Lock()
 
 
+class _Slot:
+    """One staging slot of a graph's copy in: a page-locked host tensor
+    and a device tensor shaped like the static input, and two events.
+    ``copied`` is recorded on the copy stream after the host-to-device
+    copy: the host waits for it before it fills ``pinned`` again, the
+    graph's stream before it reads ``device``.  ``consumed`` is recorded
+    on the graph's stream after ``device`` was copied into the static
+    input: the copy stream waits for it before it writes ``device``
+    again.  ``lock`` is held from the fill until both are recorded."""
+
+    __slots__ = ("lock", "pinned", "device", "copied", "consumed")
+
+    def __init__(self, like: torch.Tensor, copy_stream) -> None:
+        self.lock = threading.Lock()
+        self.pinned = torch.empty(like.shape, dtype=like.dtype,
+                                  pin_memory=True)
+        self.device = torch.empty_like(like)
+        # written on the copy stream: its memory is not reused before
+        # that stream's last copy into it has run
+        self.device.record_stream(copy_stream)
+        self.copied = torch.cuda.Event()
+        self.consumed = torch.cuda.Event()
+
+
 class CapturedForward:
-    """One executable's forward as a CUDA graph, and the stream it runs on.
+    """One executable's forward as a CUDA graph, and the streams it runs on.
 
     Built on the executable's first call (``compile_plan(jit=True)`` on a
     card): one eager forward on the graph's own side stream, which does
@@ -133,20 +158,36 @@ class CapturedForward:
     capture while the caller replays another executable.  A capture that
     fails raises: nothing runs eagerly in its place.
 
-    :meth:`run` orders the graph's stream after the caller's and copies
-    the input into the static buffer (span ``copy_in``), then replays the
-    graph, clones the static outputs (a later call does not overwrite
-    them) and orders the caller's stream after (span ``replay``, host
-    enqueue time), all on the graph's stream under a lock.  The launch
-    counts see the warm-up's launches and each replay's, never the
-    capture's: a capture records kernels and launches none.  The graph
-    reads the executable's packed parameters at the addresses they had
-    at capture.
+    :meth:`run` copies the input into the static buffer (span
+    ``copy_in``), then replays the graph, clones the static outputs (a
+    later call does not overwrite them) and orders the caller's stream
+    after (span ``replay``, host enqueue time).  A device tensor, and a
+    host input (a numpy array or a CPU tensor) that finds the graph's
+    stream idle under its lock, are copied on the graph's stream, after
+    the caller's: nothing runs there for the copy to overlap.  A host
+    input that finds the previous replay still running, or the lock held
+    by a call about to replay, is staged: the next of two
+    :class:`_Slot` s, round-robin, is filled on the host (torch's copy,
+    on its intra-op threads) and copied to the device on the
+    executable's copy stream, and the graph's stream then copies it into
+    the static input (device to device) before the replay.  So that
+    call's host-to-device copy runs under the other call's replay: the
+    host waits for no replay, only for a slot's previous host-to-device
+    copy and for the lock over the graph stream's enqueue.  A host input's ``copy_in`` span carries
+    ``overlapped``: 1 when the graph's stream still ran the previous
+    replay as the host-to-device copy was issued; a staged one carries
+    ``staged=1`` too.  ``staged`` and ``overlapped`` count them.
+
+    The launch counts see the warm-up's launches and each replay's, never
+    the capture's: a capture records kernels and launches none.  The
+    graph reads the executable's packed parameters, and its static input,
+    at the addresses they had at capture.
     """
 
     def __init__(self, forward: Callable, x: torch.Tensor,
                  device: torch.device) -> None:
         self.stream = torch.cuda.Stream(device)
+        self.copy_stream = torch.cuda.Stream(device)
         self.graph = torch.cuda.CUDAGraph()
         self._lock = threading.Lock()
         self.stream.wait_stream(torch.cuda.current_stream(device))
@@ -170,11 +211,19 @@ class CapturedForward:
         finally:
             if collecting:
                 gc.enable()
+        with torch.cuda.stream(self.stream):
+            self._slots = [_Slot(self.static_in, self.copy_stream)
+                           for _ in range(2)]
+        self._turn = itertools.count()
         #: kernel launches the capture recorded, which it did not count:
         #: each replay launches them, and :meth:`run` counts them there
         self.launches: Dict[str, int] = dict(rec)
         #: replays so far
         self.replays = 0
+        #: host inputs staged through the slots, and those of them whose
+        #: host-to-device copy was issued while a replay still ran
+        self.staged = 0
+        self.overlapped = 0
 
     def run(self, x) -> Dict[str, torch.Tensor]:
         """One replay on ``x``, a tensor or a numpy array."""
@@ -183,21 +232,66 @@ class CapturedForward:
                              f"{tuple(self.static_in.shape)}, got "
                              f"{tuple(x.shape)}")
         caller = torch.cuda.current_stream(self.static_in.device)
-        with self._lock, torch.cuda.stream(self.stream):
-            with span("copy_in"):
-                self.stream.wait_stream(caller)
-                x = _host_tensor(x)
-                self.static_in.copy_(x)
-            with span("replay"):
-                self.graph.replay()
-                out = {k: v.clone() for k, v in self.static_out.items()}
-                self.replays += 1
-                add_launches(self.launches)
-                caller.wait_stream(self.stream)
-        if x.is_cuda:
+        host = not (isinstance(x, torch.Tensor) and x.is_cuda)
+        out = None
+        # only the lock's holder enqueues a replay: a graph stream found
+        # idle under it stays idle until this call's own replay, and a
+        # lock held elsewhere is a replay on its way
+        if self._lock.acquire(blocking=not host):
+            try:
+                if not host:
+                    out = self._run_direct(x, caller)
+                elif self.stream.query():
+                    out = self._run_direct(x, caller, overlapped=0)
+            finally:
+                self._lock.release()
+        if out is None:
+            out = self._run_staged(x, caller)
+        if not host:
             x.record_stream(self.stream)
         for v in out.values():
             v.record_stream(caller)
+        return out
+
+    def _run_direct(self, x, caller, **attrs) -> Dict[str, torch.Tensor]:
+        """The copy into the static input on the graph's stream, then the
+        replay; under the lock, which the caller holds."""
+        with torch.cuda.stream(self.stream):
+            with span("copy_in", **attrs):
+                self.stream.wait_stream(caller)
+                self.static_in.copy_(_host_tensor(x))
+            return self._replay(caller)
+
+    def _run_staged(self, x, caller) -> Dict[str, torch.Tensor]:
+        slot = self._slots[next(self._turn) % len(self._slots)]
+        with slot.lock:
+            with span("copy_in", staged=1) as sp:
+                slot.copied.synchronize()
+                slot.pinned.copy_(_host_tensor(x))
+                overlapped = not self.stream.query()
+                with torch.cuda.stream(self.copy_stream):
+                    self.copy_stream.wait_event(slot.consumed)
+                    slot.device.copy_(slot.pinned, non_blocking=True)
+                    slot.copied.record(self.copy_stream)
+                sp.set(overlapped=int(overlapped))
+            with self._lock, torch.cuda.stream(self.stream):
+                self.stream.wait_stream(caller)
+                self.stream.wait_event(slot.copied)
+                self.static_in.copy_(slot.device)
+                slot.consumed.record(self.stream)
+                self.staged += 1
+                self.overlapped += overlapped
+                return self._replay(caller)
+
+    def _replay(self, caller) -> Dict[str, torch.Tensor]:
+        """The replay, its clones and the caller's stream ordered after
+        them (span ``replay``); under the lock, on the graph's stream."""
+        with span("replay"):
+            self.graph.replay()
+            out = {k: v.clone() for k, v in self.static_out.items()}
+            self.replays += 1
+            add_launches(self.launches)
+            caller.wait_stream(self.stream)
         return out
 
 

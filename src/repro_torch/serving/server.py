@@ -43,7 +43,12 @@ Port of the reference's ``serving/server.py``.  What differs:
   serves the eager walk.  On the CPU ``jit`` has no effect.
 * **The device.**  ``device`` (default: the card, which must be
   present) is where every executable runs; ``device="cpu"`` serves the
-  plain PyTorch versions.  Outputs come back to the host as numpy.
+  plain PyTorch versions.  Outputs come back to the host as numpy.  On
+  the card a call made while another is in flight calls its executable
+  and copies its outputs to the host on its thread's own stream: on one
+  shared stream a thread's copy out would queue behind the wait that
+  another thread's call, replayed meanwhile, put there.  A lone call
+  stays on the thread's current stream, where it is cheaper.
 * **The mesh is SPMD.**  With a ``DeviceMesh`` (``mesh=``), batched
   buckets solve the unified choice space (primitive x layout x device
   placement, ``select_pbqp(..., mesh_axes=)``), plans with a sharded
@@ -82,6 +87,7 @@ different buckets take one process-wide lock; replays do not.
 from __future__ import annotations
 
 import random
+import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -219,6 +225,11 @@ class PlanServer:
             on_corrupt=lambda _k: self.counters.add(plan_cache_corrupt=1),
             fault_injector=fault_injector) if cache_dir else None
         self._lock = RLock()
+        #: each calling thread's own stream on the card, and the calls in
+        #: flight, which choose whether to take it (:meth:`_run`)
+        self._streams = threading.local()
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix="planserver")
         #: request-shape -> output-node expected shapes (crop targets)
@@ -527,7 +538,7 @@ class PlanServer:
         may differ from the argument after a quarantine re-solve.
         """
         if not self.guard_outputs and self.fault_injector is None:
-            return _to_host(cnet(xb)), cnet
+            return self._run(cnet, xb), cnet
         bkey = bucket_key(bshape, nb)
         attempts = 0
         while True:
@@ -535,7 +546,7 @@ class PlanServer:
             failure: Optional[BaseException] = None
             culprit: Optional[str] = None
             try:
-                out = _to_host(cnet(xb))
+                out = self._run(cnet, xb)
             except Exception as exc:
                 if self._propagates(exc):
                     raise
@@ -586,6 +597,27 @@ class PlanServer:
             # plan + executable: this re-solves (culprit banned, warm-
             # started from the poisoned plan), recompiles, and retries
             cnet = self.compiled_for(bshape, n=nb)
+
+    def _run(self, cnet: CompiledNet, xb) -> Dict[str, np.ndarray]:
+        """``cnet(xb)`` with its outputs on the host; on the card on the
+        calling thread's own stream if another call is in flight (module
+        docstring, "The device")."""
+        if self.device.type != "cuda":
+            return _to_host(cnet(xb))
+        with self._inflight_lock:
+            alone = self._inflight == 0
+            self._inflight += 1
+        try:
+            if alone:
+                return _to_host(cnet(xb))
+            stream = getattr(self._streams, "stream", None)
+            if stream is None:
+                stream = self._streams.stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
+                return _to_host(cnet(xb))
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
 
     def _quarantine_bucket(self, bshape: Shape, nb: int,
                            primitive: str) -> bool:
@@ -858,6 +890,11 @@ class PlanServer:
         #: selection's predicted ms (``CompiledNet``'s fields)
         with self._lock:
             live = list(self._compiled._d.items())
+        #: the live graphs' host inputs staged through their pinned
+        #: slots, and those copied in under a replay (``CapturedForward``)
+        graphs = [c.graph for _, c in live if c.graph is not None]
+        d["copy_in_staged"] = sum(g.staged for g in graphs)
+        d["copy_in_overlapped"] = sum(g.overlapped for g in graphs)
         d["plans"] = {bucket_key(pkey[:3], pkey[3]): _plan_stats(cnet)
                       for pkey, cnet in live}
         return d

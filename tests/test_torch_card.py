@@ -927,6 +927,128 @@ class TestServingGraphs:
             srv.close()
 
 
+@pytest.fixture(scope="module")
+def googlenet_b16():
+    """GoogLeNet's batch-16 executable as the ``googlenet.offline-b16``
+    cell serves it (exact buckets, the H100 model with the kernels
+    priced), its server, 16 distinct batches and the eager walk's
+    outputs of each, on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (sm_90a)")
+    from repro_torch.convnets import googlenet
+    from repro_torch.core.costs import H100_SPEC, AnalyticCostModel
+    from repro_torch.serving import BucketPolicy, PlanServer
+    srv = PlanServer(lambda s: googlenet(1.0),
+                     AnalyticCostModel(H100_SPEC, include_kernels=True),
+                     policy=BucketPolicy(spatial="exact", channel="exact",
+                                         min_n=16, max_n=16))
+    shape = (3, 224, 224)
+    try:
+        cnet = srv.compiled_for(shape, 16)
+        rng = np.random.default_rng(31)
+        xs = [rng.normal(size=(16,) + shape).astype(np.float32)
+              for _ in range(16)]
+        want = [{k: v.cpu() for k, v in
+                 cnet.forward(torch.from_numpy(x).cuda()).items()}
+                for x in xs]
+        yield srv, cnet, xs, want
+    finally:
+        srv.close()
+
+
+def _clients(n, calls, body):
+    """``n`` threads each running ``body(thread, call)`` ``calls`` times;
+    raises the first error any of them met."""
+    import threading
+    errors = []
+
+    def client(t):
+        try:
+            for i in range(calls):
+                body(t, i)
+        except Exception as exc:  # raised below, on the test's thread
+            errors.append(exc)
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    assert not any(th.is_alive() for th in threads)
+    if errors:
+        raise errors[0]
+
+
+@pytest.mark.gpu
+class TestStagedCopyIn:
+    """A host input crosses to the card through the graph's two pinned
+    slots on its copy stream, while another call's replay runs."""
+
+    @pytest.mark.parametrize("via", ["executable", "server"])
+    @pytest.mark.parametrize("threads", [2, 4])
+    def test_every_call_gets_its_own_answer(self, cuda, googlenet_b16,
+                                            threads, via):
+        """Threads share one executable, each call with its own input
+        array, neighbouring calls with different batches: every answer
+        is the eager walk's bits of its own input, so no slot was
+        refilled or read before the call before had done with it.
+        Through the server each thread calls, and copies out, on its own
+        stream."""
+        srv, cnet, xs, want = googlenet_b16
+        got = {}
+
+        def call(t, i):
+            j = (i * threads + t) % len(xs)
+            if via == "server":
+                outs = srv.infer_batch(list(xs[j]))
+                out = {k: torch.from_numpy(np.stack([o[k] for o in outs]))
+                       for k in outs[0]}
+            else:
+                out = {k: v.cpu() for k, v in cnet(xs[j].copy()).items()}
+            got[t, i] = j, out
+        _clients(threads, 200, call)
+        assert len(got) == 200 * threads
+        wrong = [key for key, (j, out) in got.items()
+                 if out.keys() != want[j].keys()
+                 or not all(torch.equal(out[k], want[j][k]) for k in out)]
+        assert not wrong, wrong[:8]
+
+    def test_counters(self, cuda, googlenet_b16):
+        """One client finds the graph's stream idle on every call (its
+        answer was on the host before it sent the next): each copy in is
+        direct, none staged.  Two clients: a copy in that finds the
+        other's replay running is staged, and some are issued under it."""
+        srv, _, xs, _ = googlenet_b16
+        before = srv.stats()
+        for i in range(20):
+            srv.infer_batch(list(xs[i % len(xs)]))
+        one = srv.stats()
+        for k in ("copy_in_staged", "copy_in_overlapped"):
+            assert one[k] == before[k]
+        _clients(2, 100, lambda t, i: srv.infer_batch(
+            list(xs[(2 * i + t) % len(xs)])))
+        two = srv.stats()
+        staged = two["copy_in_staged"] - one["copy_in_staged"]
+        overlapped = two["copy_in_overlapped"] - one["copy_in_overlapped"]
+        assert 0 < overlapped <= staged <= 200
+
+    def test_a_device_input_is_copied_directly(self, cuda, googlenet_b16):
+        """A CUDA tensor skips the slots (and the counters): it is copied
+        into the static input on the graph's stream, with the same bits
+        as the staged copy of the same batch, sent while its replay
+        runs (held back behind a spin on the caller's stream, which the
+        replay waits for)."""
+        srv, cnet, xs, want = googlenet_b16
+        before = srv.stats()["copy_in_staged"]
+        x = torch.from_numpy(xs[3]).to(cuda)
+        torch.cuda._sleep(200_000_000)
+        direct = cnet(x)
+        staged = cnet(xs[3])
+        assert srv.stats()["copy_in_staged"] == before + 1
+        for k in want[3]:
+            assert torch.equal(direct[k].cpu(), want[3][k])
+            assert torch.equal(staged[k].cpu(), want[3][k])
+
+
 #: the spans under ``execute`` on the graph path, in order
 _GRAPH_STEPS = ["copy_in", "replay", "device_wait", "copy_out", "guard"]
 

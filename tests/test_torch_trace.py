@@ -277,3 +277,25 @@ def test_copy_in_ms_finds_nothing_to_read(what):
     ctx = {"no window": _ctx(None), "no spans": _ctx([]),
            "older program": _ctx(older)}[what]
     assert _reader("copy_in_ms")(ctx) is None
+
+
+def test_the_eager_walk_stages_no_copy_in(server, records):
+    """The staged copy in is the graph's (``CapturedForward``): on the
+    CPU's eager walk the server counts none and the ``copy_in`` spans
+    carry neither ``staged`` nor ``overlapped``; ``stats()`` sums the
+    counts of the live executables' graphs."""
+    import types
+    server.infer(_images(1)[0])
+    server.infer_batch(_images(3))
+    s = server.stats()
+    assert (s["copy_in_staged"], s["copy_in_overlapped"]) == (0, 0)
+    ci = [r for r in records if r["name"] == "copy_in"]
+    assert len(ci) == 3
+    assert not any("staged" in r or "overlapped" in r for r in ci)
+    cnet = server.compiled_for(SHAPE)
+    cnet.graph = types.SimpleNamespace(staged=3, overlapped=2)
+    try:
+        s = server.stats()
+    finally:
+        cnet.graph = None
+    assert (s["copy_in_staged"], s["copy_in_overlapped"]) == (3, 2)
